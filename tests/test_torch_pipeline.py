@@ -1,0 +1,133 @@
+"""The port's in-core build vs ``repro.core.pipeline.build_suffix_array`` and
+the oracle: the same suffix array, every Footprint field and every stats
+key, bit for bit, over reads/text corpora and the config switches."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.config import SAConfig as RefConfig
+from repro.config import SuperblockConfig
+from repro.core.pipeline import build_suffix_array as ref_build
+from repro_torch.config import SAConfig
+from repro_torch.core.oracle import doubling_sa_text, naive_sa_reads, naive_sa_text
+from repro_torch.core.pipeline import build_suffix_array
+from repro_torch.core.superblock import build_suffix_array_auto
+
+K4 = dict(vocab_size=4, chars_per_word=2, key_words=2)  # K = 4: many rounds
+
+
+def _reads(seed=0, r=60, l=15):
+    return np.random.default_rng(seed).integers(1, 5, size=(r, l)).astype(np.int32)
+
+
+def _variable(seed=1):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 11, size=(25,)).astype(np.int32)
+    reads = np.zeros((25, 11), np.int32)
+    for i, n in enumerate(lens):
+        reads[i, :n] = rng.integers(1, 5, size=(n,))
+    return reads, lens
+
+
+def _duplicates():
+    return np.tile(_reads(2, 4, 9), (4, 1))
+
+
+def _paired_end():
+    fwd = _reads(3, 20, 12)
+    return np.concatenate([fwd, fwd[:, ::-1]], axis=0)
+
+
+def _text(seed=4, n=300):
+    return np.random.default_rng(seed).integers(1, 5, size=(n,)).astype(np.int32)
+
+
+def _atat():
+    return np.tile(np.array([1, 2, 1], np.int32), 40)
+
+
+VAR, VAR_LENS = _variable()
+CASES = {
+    # name: (corpus, lengths, config overrides, oracle)
+    "reads": (_reads(), None, {}, "reads"),
+    "reads-pallas": (_reads(), None, dict(use_pallas=True), "reads"),
+    "reads-raw-pallas": (_reads(), None, dict(server_pack=False, use_pallas=True), "reads"),
+    "reads-drops": (_reads(), None, dict(fetch_fraction=0.05), "reads"),
+    "reads-bits": (_reads(), None, dict(packing="bits", chars_per_word=0), "reads"),
+    "variable": (VAR, VAR_LENS, {}, "reads"),
+    "variable-raw": (VAR, VAR_LENS, dict(server_pack=False), "reads"),
+    "variable-pallas-static": (VAR, VAR_LENS, dict(use_pallas=True, adaptive=False), "reads"),
+    "duplicates": (_duplicates(), None, {}, "reads"),
+    "duplicates-bits-pallas": (_duplicates(), None,
+                               dict(packing="bits", use_pallas=True), "reads"),
+    "paired-end": (_paired_end(), None, {}, "reads"),
+    "paired-end-raw-pallas": (_paired_end(), None,
+                              dict(server_pack=False, use_pallas=True), "reads"),
+    "text": (_text(), None, {}, "text"),
+    "text-pallas": (_text(), None, dict(use_pallas=True), "text"),
+    "text-drops-static": (_text(), None, dict(adaptive=False, fetch_fraction=0.02), "text"),
+    "text-bits-pallas": (_text(), None, dict(packing="bits", use_pallas=True), "text"),
+    "atat": (_atat(), None, {}, "text"),
+    "atat-raw-static": (_atat(), None, dict(server_pack=False, adaptive=False), "text"),
+    "atat-pallas": (_atat(), None, dict(use_pallas=True), "text"),
+    "launcher-config": (_reads(5, 50, 20), None,
+                        dict(chars_per_word=0, key_words=2, samples_per_shard=512,
+                             use_pallas=True), "reads"),
+}
+
+
+def _oracle(kind, corpus, lengths):
+    if kind == "reads":
+        return naive_sa_reads(corpus, lengths)
+    if corpus.shape[0] <= 200:
+        return naive_sa_text(corpus)
+    return doubling_sa_text(corpus)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_build_matches_repro_and_oracle(name):
+    corpus, lengths, over, kind = CASES[name]
+    kw = {**K4, **over}
+    want = ref_build(corpus, lengths=lengths, cfg=RefConfig(**kw))
+    got = build_suffix_array(corpus, lengths=lengths, cfg=SAConfig(**kw),
+                             device="cpu")
+    np.testing.assert_array_equal(got.suffix_array, want.suffix_array)
+    np.testing.assert_array_equal(got.suffix_array, _oracle(kind, corpus, lengths))
+    assert dataclasses.asdict(got.footprint) == dataclasses.asdict(want.footprint)
+    assert got.stats == want.stats
+    if "drops" in name:
+        assert got.stats["retries"] > 0  # capacity drops were retried
+    assert got.stats["unresolved"] == 0
+
+
+def test_table1_sinica():
+    """Paper Table I: SA of SINICA$ (alphabet-mapped)."""
+    text = np.array([5, 3, 4, 3, 2, 1], np.int32)
+    res = build_suffix_array(text, cfg=SAConfig(vocab_size=5, chars_per_word=3),
+                             device="cpu")
+    np.testing.assert_array_equal(res.suffix_array, [5, 4, 3, 1, 2, 0])
+
+
+def test_auto_single_pass_equals_direct_build():
+    reads = _reads()
+    a = build_suffix_array_auto(reads, cfg=SAConfig(**K4), device="cpu")
+    b = build_suffix_array_auto(reads, cfg=SAConfig(**K4), device="cpu",
+                                sb=SuperblockConfig())
+    c = build_suffix_array(reads, cfg=SAConfig(**K4), device="cpu")
+    for res in (a, b):
+        np.testing.assert_array_equal(res.suffix_array, c.suffix_array)
+        assert res.stats == c.stats
+
+
+@pytest.mark.parametrize("sb", [
+    SuperblockConfig(num_superblocks=3),
+    SuperblockConfig(max_records_per_run=100),
+    SuperblockConfig(emit_lcp=True),
+    SuperblockConfig(write_manifest=True),
+], ids=["superblocks", "budget", "lcp", "manifest"])
+def test_auto_refuses_out_of_core_plans(sb):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
