@@ -17,7 +17,10 @@ each of which fails loudly:
    of 200 tokens (201 M suffixes) and a 2^26-token text.  Both paths must
    give the same suffix array, Footprint and stats with nothing dropped or
    unresolved, the SA must be a permutation of the valid suffixes, and 2^20
-   sampled adjacent pairs must be in suffix order;
+   sampled adjacent pairs must be in suffix order.  Each build's launch
+   counts are set to 0 just before it and read just after: ``prefix_pack``
+   must launch in the text build, ``window_gather`` in the reads build, and
+   no kernel on the plain path;
 6. one profiled kernel-path build of each (``torch.profiler``): device busy
    share and device time by kind of kernel.
 
@@ -38,17 +41,16 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# int32 multiply-adds outside the tensor cores: an SM issues half as many
+# int32 as float32 lanes a clock, so half the 67 TFLOP/s float32 rate.
+PEAK_INT32_OPS_PER_S = 33.5e12
 FULL_READS, FULL_READ_LEN = 1_000_000, 200
 FULL_TEXT = 1 << 26
 GATHER_M = 1 << 22
 PAIR_SAMPLES = 1 << 20
-SMALL_PACK_CFGS = [  # tests/test_kernels.py CFGS
-    dict(vocab_size=4, packing="base"),
-    dict(vocab_size=4, packing="bits"),
-    dict(vocab_size=4, chars_per_word=3, key_words=2, packing="base"),
-    dict(vocab_size=255, packing="bits"),
-]
+READS_BUILD, TEXT_BUILD = "reads 1M x 200", "text 2^26"
+# the full-size build whose main path each kernel lies on
+KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD}
 
 
 def log(msg: str) -> None:
@@ -83,32 +85,33 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
 
 
+def byte_or_op_bound(nbytes: float, int32_ops: float):
+    """(bound ms, what bounds it): the larger of bytes moved over the memory
+    rate and int32 operations over the int32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, int32_ops / PEAK_INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(dev, reads_corpus, text_tokens):
     """Kernel vs plain version at the test and the full-size shapes."""
     import numpy as np
     import torch
 
     from repro_torch.config import SAConfig
+    from repro_torch.kernels import cases, ref
     from repro_torch.kernels import prefix_pack as pp_mod
-    from repro_torch.kernels import ref
     from repro_torch.kernels import window_gather as wg_mod
     from repro_torch.launch.sa_build import make_config
 
-    for c in SMALL_PACK_CFGS:
+    for c in cases.PACK_CFGS:
         cfg = SAConfig(**c)
-        for n in (1, 63, 512, 1300):
-            rng = np.random.default_rng(n)
-            toks = torch.from_numpy(
-                rng.integers(1, cfg.vocab_size + 1, size=(n,)).astype(np.int32)).to(dev)
+        for n in cases.PACK_LENGTHS:
+            toks = torch.from_numpy(cases.pack_tokens(c, n)).to(dev)
             check_equal(f"prefix_pack {c} n={n}",
-                        pp_mod.prefix_pack(toks, cfg, block=256),
+                        pp_mod.prefix_pack(toks, cfg, block=cases.PACK_BLOCK),
                         ref.prefix_pack_ref(toks, cfg))
-    for r, l, m, k in ((8, 16, 5, 4), (32, 200, 64, 26), (3, 7, 17, 7)):
-        rng = np.random.default_rng(r * l)
-        corpus = rng.integers(1, 5, size=(r, l)).astype(np.int32)
-        rows = rng.integers(-1, r + 1, size=(m,)).astype(np.int32)
-        offs = rng.integers(0, l + 2, size=(m,)).astype(np.int32)
-        args = [torch.from_numpy(a).to(dev) for a in (corpus, rows, offs)]
+    for r, l, m, k in cases.GATHER_SHAPES:
+        args = [torch.from_numpy(a).to(dev) for a in cases.gather_inputs(r, l, m)]
         check_equal(f"window_gather r={r} l={l} m={m} k={k}",
                     wg_mod.window_gather(*args, k), ref.window_gather_ref(*args, k))
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes")
@@ -123,12 +126,14 @@ def phase_kernels(dev, reads_corpus, text_tokens):
     want = ref.prefix_pack_ref(flat, cfg)
     check_equal("prefix_pack full size", got, want)
     n = flat.shape[0]
+    # bytes: each token read once, each key word written once; operations:
+    # one multiply and one add per token of each position's K-token window
+    bound_ms, bound_by = byte_or_op_bound(4 * n * (1 + cfg.key_words), 2 * k * n)
     out["prefix_pack"] = dict(
         max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: pp_mod.prefix_pack(flat, cfg), 20),
         plain_ms=time_ms(lambda: ref.prefix_pack_ref(flat, cfg), 3),
-        bound_ms=1e3 * max(4 * n * (1 + cfg.key_words) / PEAK_BYTES_PER_S,
-                           2 * k * n / PEAK_OPS_PER_S),
+        bound_ms=bound_ms, bound_by=bound_by,
         shape=f"N={n}, key_words={cfg.key_words}, K={k}",
     )
     del got, want, flat
@@ -146,17 +151,21 @@ def phase_kernels(dev, reads_corpus, text_tokens):
     valid = (rows >= 0) & (rows < r)
     tokens_read = int(torch.where(
         valid, (l - offs.clamp(0, l)).clamp(max=k), 0).sum())
+    # bytes: the two index arrays, the corpus tokens these requests really
+    # read, the windows written; no arithmetic beyond the indexing
+    bound_ms, bound_by = byte_or_op_bound(
+        8 * GATHER_M + 4 * min(tokens_read, r * l) + 4 * GATHER_M * k, 0)
     out["window_gather"] = dict(
         max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: wg_mod.window_gather(corpus, rows, offs, k), 20),
         plain_ms=time_ms(lambda: ref.window_gather_ref(corpus, rows, offs, k), 3),
-        bound_ms=1e3 * (8 * GATHER_M + 4 * min(tokens_read, r * l)
-                        + 4 * GATHER_M * k) / PEAK_BYTES_PER_S,
+        bound_ms=bound_ms, bound_by=bound_by,
         shape=f"M={GATHER_M}, k={k}, corpus {r}x{l}",
     )
     for name, o in out.items():
         log(f"phase 3: {name} full size ({o['shape']}): kernel {o['ms']:.4f} ms, "
-            f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms, "
+            f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
+            f"({o['bound_by']}), "
             f"max|err| {o['max_abs_err']}")
     return out
 
@@ -179,23 +188,24 @@ def phase_small_builds(dev):
         var[i, :n] = rng.integers(1, 5, size=(n,))
     text = rng.integers(1, 5, size=(300,)).astype(np.int32)
     atat = np.tile(np.array([1, 2, 1, 2], np.int32), 40)
-    reset_launch_counts()
-    cases = [
-        ("uniform reads", reads, None, naive_sa_reads(reads)),
-        ("variable-length reads", var, lens, naive_sa_reads(var, lens)),
-        ("random text", text, None, doubling_sa_text(text)),
-        ("ATAT text", atat, None, naive_sa_text(atat)),
+    cases = [  # (name, corpus, lengths, oracle SA, the kernel its path runs)
+        ("uniform reads", reads, None, naive_sa_reads(reads), "window_gather"),
+        ("variable-length reads", var, lens, naive_sa_reads(var, lens),
+         "window_gather"),
+        ("random text", text, None, doubling_sa_text(text), "prefix_pack"),
+        ("ATAT text", atat, None, naive_sa_text(atat), "prefix_pack"),
     ]
-    for name, corpus, lengths, want in cases:
+    for name, corpus, lengths, want, kernel in cases:
+        reset_launch_counts()
         res = build_suffix_array(corpus, lengths=lengths, cfg=cfg, device=dev)
+        counts = launch_counts()
         if not np.array_equal(res.suffix_array, want):
             raise AssertionError(f"phase 4: {name}: SA != oracle")
         if res.stats["dropped"] or res.stats["unresolved"]:
             raise AssertionError(f"phase 4: {name}: {res.stats}")
-    counts = launch_counts()
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"phase 4: a kernel was not launched: {counts}")
-    log(f"phase 4: 4 small builds == oracle on {dev}; launches {counts}")
+        if counts[kernel] <= 0:
+            raise AssertionError(f"phase 4: {name}: {kernel} not launched: {counts}")
+        log(f"phase 4: {name} == oracle on {dev}; launches {counts}")
 
 
 def check_permutation(sa, expected):
@@ -247,16 +257,17 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import sa_build
 
-    builds = [("reads 1M x 200", reads_corpus), ("text 2^26", text_tokens)]
+    builds = [(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)]
     results = {}
-    counts = {}
+    counts = {}  # build -> launches of each kernel in its kernel-path run
     for use_pallas in (True, False):
-        reset_launch_counts()
         for name, corpus in builds:
             cfg = sa_build.make_config("base", "cuda", use_pallas=use_pallas)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
             res, dt = sa_build.run(corpus, cfg, dev.type)
+            launched = launch_counts()
             peak = torch.cuda.max_memory_allocated()
             n = res.stats["num_suffixes"]
             path = "kernels" if use_pallas else "plain"
@@ -265,8 +276,15 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
                 f"{res.footprint.rounds}, peak {peak / 2**30:.2f} GiB")
             sa_build.report(res, dt)
             results[(name, use_pallas)] = res
-        if use_pallas:
-            counts = launch_counts()  # the main path's launches
+            if use_pallas:
+                counts[name] = launched
+                log(f"phase 5: {name} [kernels]: launches {launched}")
+            elif any(launched.values()):
+                raise AssertionError(f"{name}: plain path launched {launched}")
+    for kernel, name in KERNEL_BUILD.items():
+        if counts[name][kernel] <= 0:
+            raise AssertionError(
+                f"{kernel} was not launched in the {name} build: {counts[name]}")
     for name, corpus in builds:
         a, b = results[(name, True)], results[(name, False)]
         if not (np.array_equal(a.suffix_array, b.suffix_array)
@@ -299,6 +317,7 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
 
 KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
     ("prefix_pack", "prefix_pack"), ("window_gather", "window_gather"),
+    ("gather", "gather"),
     ("RadixSort", "sort"), ("radix", "sort"), ("sort", "sort"),
     ("scan", "scan"), ("scatter", "scatter"), ("index", "index"),
     ("reduce", "reduce"), ("Memcpy", "memcpy"), ("Memset", "memset"),
@@ -370,9 +389,7 @@ def main() -> int:
     kern = phase_kernels(dev, reads_corpus, text_tokens)
     phase_small_builds(dev)
     counts = phase_full_builds(dev, reads_corpus, text_tokens)
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was not launched: {counts}")
-    phase_profile([("reads 1M x 200", reads_corpus), ("text 2^26", text_tokens)])
+    phase_profile([(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)])
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",
@@ -381,14 +398,16 @@ def main() -> int:
                           "src/repro/kernels/window_gather.py:33"),
     }
     log("kernels: " + "; ".join(
-        f"{k} launches={counts[k]} equal=True max_abs_err={kern[k]['max_abs_err']}"
-        for k in sources))
+        f"{k} launches={counts[KERNEL_BUILD[k]][k]} in the {KERNEL_BUILD[k]} build "
+        f"(by build: {', '.join(f'{b} {c[k]}' for b, c in counts.items())}) "
+        f"equal=True max_abs_err={kern[k]['max_abs_err']}" for k in sources))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[k], "max_abs_err": kern[k]["max_abs_err"],
+         "launches": counts[KERNEL_BUILD[k]][k],
+         "max_abs_err": kern[k]["max_abs_err"],
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
-         "bound_ms": kern[k]["bound_ms"], "bound_by": "bytes",
+         "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": None}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,18 +17,20 @@ from repro_torch.config import SAConfig
 from repro_torch.kernels import KERNEL_REGISTRY, launch_counts, ops, ref
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
-from test_torch_kernels_gpu import CFGS, GATHER_SHAPES, IDS, _gather_inputs, _tokens
+from repro_torch.kernels.cases import (
+    GATHER_SHAPES, PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, gather_inputs,
+    pack_tokens)
 
 
-@pytest.mark.parametrize("kw", CFGS, ids=IDS)
-@pytest.mark.parametrize("n", [1, 63, 512, 1300])
+@pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
+@pytest.mark.parametrize("n", PACK_LENGTHS)
 def test_prefix_pack_ref_matches_repro(kw, n):
-    toks = _tokens(kw, n)
+    toks = pack_tokens(kw, n)
     before = launch_counts()
-    got = ops.prefix_pack(torch.from_numpy(toks), SAConfig(**kw), block=256)
+    got = ops.prefix_pack(torch.from_numpy(toks), SAConfig(**kw), block=PACK_BLOCK)
     assert launch_counts() == before  # CPU tensors take the plain version
     want_ref = jref.prefix_pack_ref(jnp.asarray(toks), RefConfig(**kw))
-    want_kernel = ref_ops.prefix_pack(jnp.asarray(toks), RefConfig(**kw), block=256)
+    want_kernel = ref_ops.prefix_pack(jnp.asarray(toks), RefConfig(**kw), block=PACK_BLOCK)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_ref))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_kernel))
     np.testing.assert_array_equal(
@@ -38,7 +40,7 @@ def test_prefix_pack_ref_matches_repro(kw, n):
 
 @pytest.mark.parametrize("r,l,m,k", GATHER_SHAPES)
 def test_window_gather_ref_matches_repro(r, l, m, k):
-    corpus, rows, offs = _gather_inputs(r, l, m)
+    corpus, rows, offs = gather_inputs(r, l, m)
     before = launch_counts()
     got = ops.window_gather(*map(torch.from_numpy, (corpus, rows, offs)), k)
     assert launch_counts() == before

@@ -6,7 +6,6 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,29 +14,9 @@ from repro_torch.config import SAConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
-
-CFGS = [  # tests/test_kernels.py CFGS
-    dict(vocab_size=4, packing="base"),
-    dict(vocab_size=4, packing="bits"),
-    dict(vocab_size=4, chars_per_word=3, key_words=2, packing="base"),
-    dict(vocab_size=255, packing="bits"),
-]
-IDS = [f"{c['packing']}-v{c['vocab_size']}-cpw{c.get('chars_per_word', 0)}"
-       for c in CFGS]
-GATHER_SHAPES = [(8, 16, 5, 4), (32, 200, 64, 26), (3, 7, 17, 7)]
-
-
-def _tokens(kw, n):
-    rng = np.random.default_rng(n)
-    return rng.integers(1, kw["vocab_size"] + 1, size=(n,)).astype(np.int32)
-
-
-def _gather_inputs(r, l, m):
-    rng = np.random.default_rng(r * l)
-    corpus = rng.integers(1, 5, size=(r, l)).astype(np.int32)
-    rows = rng.integers(-1, r + 1, size=(m,)).astype(np.int32)
-    offs = rng.integers(0, l + 2, size=(m,)).astype(np.int32)
-    return corpus, rows, offs
+from repro_torch.kernels.cases import (
+    GATHER_SHAPES, PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, gather_inputs,
+    pack_tokens)
 
 
 @pytest.fixture
@@ -48,12 +27,12 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kw", CFGS, ids=IDS)
-@pytest.mark.parametrize("n", [1, 63, 512, 1300])
+@pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
+@pytest.mark.parametrize("n", PACK_LENGTHS)
 def test_prefix_pack_kernel_on_card(cuda, kw, n):
-    toks = torch.from_numpy(_tokens(kw, n)).to(cuda)
+    toks = torch.from_numpy(pack_tokens(kw, n)).to(cuda)
     before = pp_mod.prefix_pack.launches
-    got = ops.prefix_pack(toks, SAConfig(**kw), block=256)
+    got = ops.prefix_pack(toks, SAConfig(**kw), block=PACK_BLOCK)
     torch.cuda.synchronize()
     assert pp_mod.prefix_pack.launches == before + 1
     assert torch.equal(got, ref.prefix_pack_ref(toks, SAConfig(**kw)))
@@ -62,7 +41,7 @@ def test_prefix_pack_kernel_on_card(cuda, kw, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,l,m,k", GATHER_SHAPES)
 def test_window_gather_kernel_on_card(cuda, r, l, m, k):
-    args = [torch.from_numpy(a).to(cuda) for a in _gather_inputs(r, l, m)]
+    args = [torch.from_numpy(a).to(cuda) for a in gather_inputs(r, l, m)]
     before = wg_mod.window_gather.launches
     got = ops.window_gather(*args, k)
     torch.cuda.synchronize()

@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "repro_torch.data.corpus",
     "repro_torch.kernels",
     "repro_torch.kernels.ref",
+    "repro_torch.kernels.cases",
     "repro_torch.kernels.ops",
     "repro_torch.kernels._build",
     "repro_torch.kernels.prefix_pack",
