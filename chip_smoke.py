@@ -9,9 +9,11 @@ each of which fails loudly:
 1. the card's name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel to its plain PyTorch version on the card with
-   ``torch.equal``, at the kernel-test shapes and at the full-size shapes of
-   phase 5, and time both;
-4. small end-to-end builds on the card (kernels on) against the numpy oracle;
+   ``torch.equal``, at the kernel-test shapes (``pattern_cmp``'s edge rows
+   included) and at the full-size shapes of phases 5 and 7, and time both;
+4. small end-to-end builds on the card (kernels on) against the numpy oracle,
+   and small ``SuffixArrayIndex`` builds whose count/locate/align answers
+   are held to brute force;
 5. two full-size builds through ``repro_torch.launch.sa_build``'s code path,
    each with the kernels and with the plain path on the card: 1 M DNA reads
    of 200 tokens (201 M suffixes) and a 2^26-token text.  Both paths must
@@ -22,7 +24,15 @@ each of which fails loudly:
    must launch in the text build, ``window_gather`` in the reads build, and
    no kernel on the plain path;
 6. one profiled kernel-path build of each (``torch.profiler``): device busy
-   share and device time by kind of kernel.
+   share and device time by kind of kernel;
+7. the query path at full size: ``SuffixArrayIndex.build`` with its LCP
+   array over the reads of phase 5 and over the 2^26-token text, then
+   batches of 4096 alignment seeds sampled from SA rows (a quarter from a
+   hot set) through ``count`` and one batch through ``align``.  A second
+   engine on the plain compare must give the same ranges and
+   ``engine_stats()``; ``pattern_cmp`` must launch on the kernel engine and
+   not on the plain one; every range is checked at its edges against the
+   tokens, and 2^20 sampled LCP values against a direct compare.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -49,8 +59,14 @@ FULL_TEXT = 1 << 26
 GATHER_M = 1 << 22
 PAIR_SAMPLES = 1 << 20
 READS_BUILD, TEXT_BUILD = "reads 1M x 200", "text 2^26"
-# the full-size build whose main path each kernel lies on
-KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD}
+READS_QUERY, TEXT_QUERY = "reads query", "text query"
+# the full-size run whose main path each kernel lies on
+KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
+                "pattern_cmp": READS_QUERY}
+# phase 7: (seeds, seed length) per index, sent as count batches of QUERY_BATCH
+QUERY_BATCH = 4096
+QUERIES = {READS_QUERY: (1 << 16, 24), TEXT_QUERY: (1 << 14, 16)}
+HOT_FRACTION = 0.25
 
 
 def log(msg: str) -> None:
@@ -99,6 +115,7 @@ def phase_kernels(dev, reads_corpus, text_tokens):
 
     from repro_torch.config import SAConfig
     from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import pattern_cmp as pc_mod
     from repro_torch.kernels import prefix_pack as pp_mod
     from repro_torch.kernels import window_gather as wg_mod
     from repro_torch.launch.sa_build import make_config
@@ -114,7 +131,16 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         args = [torch.from_numpy(a).to(dev) for a in cases.gather_inputs(r, l, m)]
         check_equal(f"window_gather r={r} l={l} m={m} k={k}",
                     wg_mod.window_gather(*args, k), ref.window_gather_ref(*args, k))
-    log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes")
+    cmp_cases = [(f"n={n} k={k} block={block}", cases.cmp_inputs(n, k), block)
+                 for n, k, block in cases.CMP_SHAPES]
+    cmp_cases += [(f"edge rows k={k}", cases.cmp_edge_inputs(k), 256)
+                  for k in cases.CMP_EDGE_K]
+    for name, arrays, block in cmp_cases:
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        check_equal(f"pattern_cmp {name}", pc_mod.pattern_cmp(*args, block=block),
+                    ref.pattern_cmp_ref(*args))
+    log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes "
+        "and pattern_cmp's edge rows")
 
     out = {}
     # prefix_pack at the text Map's shape: the 2^26 tokens plus the K-token halo
@@ -162,6 +188,38 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f"M={GATHER_M}, k={k}, corpus {r}x{l}",
     )
+    del got, want, corpus, rows, offs
+
+    # pattern_cmp at the query engine's largest launch: one row per seed of a
+    # 4096-pattern batch, K = 26
+    args = [torch.from_numpy(a).to(dev) for a in cases.cmp_inputs(QUERY_BATCH, k)]
+    got = pc_mod.pattern_cmp(*args)
+    want = ref.pattern_cmp_ref(*args)
+    check_equal("pattern_cmp B=4096", got, want)
+    # bytes: the window tokens this data needs (in-range columns up to the
+    # first mismatch) from both windows, start/stop read, [cmp, matched]
+    # written; operations: one compare per token read
+    sfx, _, start, stop = args
+    lo, hi = start.clamp(min=0), stop.clamp(max=k)
+    first = want[:, 1] + start
+    needed = torch.where(want[:, 0] != 0, first - lo + 1, hi - lo).clamp(min=0)
+    tokens = int(needed.sum())
+    b = sfx.shape[0]
+    bound_ms, bound_by = byte_or_op_bound(2 * 4 * tokens + 8 * b + 8 * b, tokens)
+    out["pattern_cmp"] = dict(
+        max_abs_err=max_abs_err(got, want),
+        ms=time_ms(lambda: pc_mod.pattern_cmp(*args), 200),
+        plain_ms=time_ms(lambda: ref.pattern_cmp_ref(*args), 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"B={b}, K={k}, {tokens} window tokens needed",
+    )
+    # at this size a call costs its host launch path more than its device
+    # time: read the device time alone from the profiler
+    _, dev_ms, launches = profiled(lambda: [pc_mod.pattern_cmp(*args) for _ in range(200)])
+    key = next(key for key in dev_ms if "pattern_cmp" in key)
+    log(f"phase 3: pattern_cmp B={b}: device time {dev_ms[key] / launches[key]:.4f} ms "
+        f"a launch (profiler, {launches[key]} launches); CUDA events "
+        f"{out['pattern_cmp']['ms']:.4f} ms a call, host launch path included")
     for name, o in out.items():
         log(f"phase 3: {name} full size ({o['shape']}): kernel {o['ms']:.4f} ms, "
             f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
@@ -206,6 +264,74 @@ def phase_small_builds(dev):
         if counts[kernel] <= 0:
             raise AssertionError(f"phase 4: {name}: {kernel} not launched: {counts}")
         log(f"phase 4: {name} == oracle on {dev}; launches {counts}")
+
+
+def brute_text(text, pat):
+    """Sorted start positions of ``pat`` in ``text`` (numpy, brute force)."""
+    import numpy as np
+
+    p = len(pat)
+    if p == 0:
+        return np.arange(len(text))
+    if p > len(text):
+        return np.zeros(0, np.int64)
+    win = np.lib.stride_tricks.sliding_window_view(text, p)
+    return np.flatnonzero((win == pat).all(axis=1))
+
+
+def brute_reads(reads, pat):
+    """Sorted (read, offset) hits of ``pat`` inside the reads (0 = padding)."""
+    import numpy as np
+
+    padded = np.pad(reads, ((0, 0), (0, len(pat) + 1)))
+    win = np.lib.stride_tricks.sliding_window_view(padded, len(pat), axis=1)
+    hit = (win[:, : reads.shape[1] + 1] == pat).all(axis=2)
+    return [(int(i), int(o)) for i, o in zip(*np.nonzero(hit), strict=True)]
+
+
+def phase_small_indexes(dev):
+    """Small ``SuffixArrayIndex`` builds on the card with the kernels: the
+    quickstart's paired-end reads, random text and ATAT text, with count,
+    locate and align held to brute force."""
+    import numpy as np
+
+    from repro_torch import SAConfig, SuffixArrayIndex
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(3)
+    reads = synth_dna_reads(64, 48, seed=1, paired_end=True)
+    text = rng.integers(1, 5, size=(300,)).astype(np.int32)
+    atat = np.tile(np.array([1, 2, 1, 2], np.int32), 40)
+    for name, corpus in (("quickstart reads", reads), ("random text", text),
+                         ("ATAT text", atat)):
+        cfg = SAConfig(vocab_size=4, use_pallas=True)
+        pats = [np.zeros(0, np.int64), np.array([9], np.int64),
+                np.array([0, 1], np.int64)]
+        flat = corpus.reshape(-1)
+        for start, m in zip(rng.integers(0, flat.size - 30, 40),
+                            rng.integers(1, 30, 40), strict=True):
+            pats.append(flat[start : start + m].astype(np.int64))
+        reset_launch_counts()
+        idx = SuffixArrayIndex.build(corpus, cfg=cfg, device=dev)
+        counts, occ = idx.count(pats), idx.locate(pats)
+        launched = launch_counts()
+        if launched["pattern_cmp"] <= 0:
+            raise AssertionError(f"phase 4: {name}: pattern_cmp not launched: {launched}")
+        for p, c, o in zip(pats, counts, occ, strict=True):
+            live = p.size == 0 or (p.min() >= 1 and p.max() <= 4)
+            if corpus.ndim == 1:
+                want = brute_text(corpus, p) if live else np.zeros(0, np.int64)
+                if not np.array_equal(o, want) or c != want.size:
+                    raise AssertionError(f"phase 4: {name}: locate {p} != brute force")
+            elif p.size and live:
+                want = brute_reads(corpus, p)
+                if idx.align(p) != want or c != len(want):
+                    raise AssertionError(f"phase 4: {name}: align {p} != brute force")
+            elif c != (corpus.size + corpus.shape[0] if live else 0):
+                raise AssertionError(f"phase 4: {name}: count {p} is {c}")
+        log(f"phase 4: {name} index == brute force on {dev} "
+            f"({len(pats)} patterns); launches {launched}")
 
 
 def check_permutation(sa, expected):
@@ -282,7 +408,7 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
             elif any(launched.values()):
                 raise AssertionError(f"{name}: plain path launched {launched}")
     for kernel, name in KERNEL_BUILD.items():
-        if counts[name][kernel] <= 0:
+        if name in counts and counts[name][kernel] <= 0:
             raise AssertionError(
                 f"{kernel} was not launched in the {name} build: {counts[name]}")
     for name, corpus in builds:
@@ -317,6 +443,7 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
 
 KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
     ("prefix_pack", "prefix_pack"), ("window_gather", "window_gather"),
+    ("pattern_cmp", "pattern_cmp"),
     ("gather", "gather"),
     ("RadixSort", "sort"), ("radix", "sort"), ("sort", "sort"),
     ("scan", "scan"), ("scatter", "scatter"), ("index", "index"),
@@ -324,32 +451,253 @@ KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
 )
 
 
-def phase_profile(builds):
-    """Where one kernel-path build of each cell spends its device time."""
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler``: (wall s, device ms by kernel
+    name, launches by kernel name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (dt, {e.key: e.self_device_time_total / 1e3 for e in kernels},
+            {e.key: e.count for e in kernels})
+
+
+def by_kind(ms):
+    out = {}
+    for key, t in ms.items():
+        cls = next((c for sub, c in KERNEL_CLASSES if sub in key), "elementwise")
+        out[cls] = out.get(cls, 0.0) + t
+    return ", ".join(f"{c} {t:.1f} ms" for c, t in sorted(out.items(), key=lambda x: -x[1]))
+
+
+def phase_profile(builds):
+    """Where one kernel-path build of each cell spends its device time."""
+    import torch
 
     from repro_torch.launch import sa_build
 
     for name, corpus in builds:
         cfg = sa_build.make_config("base", "cuda")
         torch.cuda.empty_cache()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, dt = sa_build.run(corpus, cfg, "cuda")
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+        dt, ms, _ = profiled(lambda c=corpus, g=cfg: sa_build.run(c, g, "cuda"))
         busy = sum(ms.values())
-        by_class = {}
-        for key, t in ms.items():
-            cls = next((c for sub, c in KERNEL_CLASSES if sub in key), "elementwise")
-            by_class[cls] = by_class.get(cls, 0.0) + t
         log(f"phase 6: {name} profiled: wall {dt * 1e3:.1f} ms, device busy "
             f"{busy:.1f} ms ({100 * busy / (dt * 1e3):.1f} % of wall)")
-        log("  by kind: " + ", ".join(
-            f"{c} {t:.1f} ms" for c, t in sorted(by_class.items(), key=lambda x: -x[1])))
+        log("  by kind: " + by_kind(ms))
         for key, t in sorted(ms.items(), key=lambda x: -x[1])[:6]:
             log(f"  {t:9.2f} ms  {key[:100]}")
+
+
+def token_layout(corpus, sa, stride_bits):
+    """(flat, pos): the tokens with a 0 after every suffix's last token, and
+    each SA entry's position in them (as ``check_sampled_order`` takes)."""
+    import torch
+
+    dev = sa.device
+    if corpus.ndim == 1:
+        return torch.from_numpy(corpus).to(dev), sa
+    l = corpus.shape[1]
+    flat = torch.nn.functional.pad(torch.from_numpy(corpus).to(dev), (0, 1)).reshape(-1)
+    return flat, (sa >> stride_bits) * (l + 1) + (sa & ((1 << stride_bits) - 1))
+
+
+def tokens_at(flat, pos, width):
+    """(m, width) tokens from each position, 0 past the end."""
+    import torch
+
+    n = flat.shape[0]
+    idx = pos[:, None] + torch.arange(width, device=flat.device)[None, :]
+    return torch.where(idx < n, flat[idx.clamp(max=n - 1)], 0)
+
+
+def check_ranges(flat, pos, rows, plen, rg):
+    """Every suffix in ``sa[lo:hi]`` starts with its pattern, and ``sa[lo-1]``
+    and ``sa[hi]`` (where they exist) do not."""
+    import torch
+
+    dev = flat.device
+    n = pos.shape[0]
+    lo, hi = rg[:, 0], rg[:, 1]
+    cnt = hi - lo
+    pid = torch.repeat_interleave(torch.arange(rows.shape[0], device=dev), cnt)
+    first = torch.repeat_interleave(lo - torch.cumsum(cnt, 0) + cnt, cnt)
+    inside = torch.arange(pid.shape[0], device=dev) + first
+    width = rows.shape[1]
+    cols = torch.arange(width, device=dev)[None, :]
+
+    def starts_with(sa_row, p):
+        got = tokens_at(flat, pos[sa_row], width)
+        return ((got == rows[p]) | (cols >= plen[p][:, None])).all(dim=1)
+
+    if not bool(starts_with(inside, pid).all()):
+        raise AssertionError("a suffix inside its range does not start with the pattern")
+    q = torch.arange(rows.shape[0], device=dev)
+    for edge, ok in ((lo - 1, lo >= 1), (hi, hi < n)):
+        if bool(starts_with(edge[ok], q[ok]).any()):
+            raise AssertionError("a suffix just outside its range starts with the pattern")
+
+
+def check_sampled_lcp(flat, pos, lcp, seed):
+    """2^20 sampled ``lcp[i]`` == the first column where the suffixes at
+    ``sa[i-1]`` and ``sa[i]`` differ or both have ended."""
+    import torch
+
+    dev = flat.device
+    gen = torch.Generator().manual_seed(seed)
+    i = torch.randint(1, pos.shape[0], (PAIR_SAMPLES,), generator=gen).to(dev)
+    a, b = pos[i - 1], pos[i]
+    want = torch.full((PAIR_SAMPLES,), -1, dtype=torch.int64, device=dev)
+    c0 = 0
+    while bool((want < 0).any()):
+        ta, tb = tokens_at(flat, a + c0, 64), tokens_at(flat, b + c0, 64)
+        stop = (ta != tb) | (ta == 0)
+        hit = stop.any(dim=1) & (want < 0)
+        want = torch.where(hit, c0 + stop.int().argmax(dim=1), want)
+        c0 += 64
+    got = lcp[i]
+    if not torch.equal(got, want):
+        raise AssertionError(f"{int((got != want).sum())} sampled LCP values differ")
+
+
+def sample_seeds(idx, rng, count, m):
+    """Alignment seeds as ``repro.launch.serve`` samples them: the depth-0
+    window of random SA rows cut to ``m`` tokens, zeros stripped.  Read
+    from the backend, so the store's counters stay the engine's."""
+    import numpy as np
+    import torch
+
+    dev = idx.store.device
+    g = torch.from_numpy(np.asarray(idx.sa, np.int64)[rng.integers(0, len(idx.sa), count)])
+    win = idx.store.backend.gather(g.to(dev), torch.zeros_like(g).to(dev))
+    win = win[:, : min(m, idx.store.k)].cpu().numpy()
+    out = []
+    for row in win:
+        row = row[row > 0]
+        out.append(row.astype(np.int64) if row.size else np.array([1], np.int64))
+    return out
+
+
+def phase_queries(dev, reads_corpus, text_tokens):
+    """The query path at full size: build with LCP, count batches, align."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ShardedSAEngine
+    from repro_torch.core.store import CorpusStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.sa_build import make_config
+    from repro_torch.serve.sa_engine import SuffixArrayIndex
+
+    counts, report = {}, {}
+    for name, corpus in ((READS_QUERY, reads_corpus), (TEXT_QUERY, text_tokens)):
+        n_seeds, m = QUERIES[name]
+        rng = np.random.default_rng(11)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        idx = SuffixArrayIndex.build(corpus, cfg=make_config("base", "cuda", use_pallas=True),
+                                     device=dev)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = idx.engine
+        torch.cuda.synchronize()
+        t_engine = time.perf_counter() - t0
+        hot = sample_seeds(idx, rng, max(1, n_seeds // 50), m)
+        batches = []
+        for _ in range(n_seeds // QUERY_BATCH):
+            batch = sample_seeds(idx, rng, QUERY_BATCH, m)
+            for i in np.flatnonzero(rng.random(QUERY_BATCH) < HOT_FRACTION):
+                batch[i] = hot[int(rng.integers(0, len(hot)))]
+            batches.append(batch)
+        # the align batch: seeds of the full length (a seed cut short by its
+        # suffix's end can match tens of millions of positions)
+        seeds = [p for p in sample_seeds(idx, rng, 2 * QUERY_BATCH, m) if p.size == m]
+        seeds = seeds[:QUERY_BATCH]
+        lat, kernel_counts = [], []
+        t0 = time.perf_counter()
+        for batch in batches:
+            tb = time.perf_counter()
+            kernel_counts.append(idx.count(batch))
+            lat.append(time.perf_counter() - tb)
+        t_query = time.perf_counter() - t0
+        hits = idx.align(seeds) if corpus.ndim == 2 else idx.locate(seeds)
+        launched = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        kstats = eng.engine_stats()
+        counts[name] = launched
+        if launched["pattern_cmp"] <= 0:
+            raise AssertionError(f"{name}: pattern_cmp not launched: {launched}")
+
+        # the plain compare over the same backend and arrays, in a store of
+        # its own so its traffic counters start from 0 as the kernel's did
+        plain_store = CorpusStore(None, idx.cfg, backend=idx.store.backend,
+                                  request_capacity=idx.store.request_capacity)
+        reset_launch_counts()
+        plain = ShardedSAEngine(plain_store, idx.sa, lcp=idx.lcp, use_pallas=False)
+        t0 = time.perf_counter()
+        for batch, want in zip(batches, kernel_counts, strict=True):
+            if not np.array_equal(plain.count(batch), want):
+                raise AssertionError(f"{name}: kernel and plain engines differ")
+        t_plain = time.perf_counter() - t0
+        plain_hits = plain.align(seeds) if corpus.ndim == 2 else plain.locate(seeds)
+        if any(launch_counts().values()):
+            raise AssertionError(f"{name}: plain engine launched {launch_counts()}")
+        pstats = plain.engine_stats()
+        if pstats != kstats:
+            raise AssertionError(f"{name}: engine_stats differ: {kstats} != {pstats}")
+        if not all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(hits, plain_hits, strict=True)):
+            raise AssertionError(f"{name}: kernel and plain align/locate differ")
+        all_counts = np.concatenate(kernel_counts)
+        if all_counts.min() < 1:
+            raise AssertionError(f"{name}: a sampled seed has count 0")
+
+        sa = eng.sa
+        flat, pos = token_layout(corpus, sa, idx.store.stride_bits)
+        rows = torch.from_numpy(np.stack(seeds)).to(dev)
+        check_ranges(flat, pos, rows, torch.full((len(seeds),), m, device=dev),
+                     torch.from_numpy(eng.ranges(seeds)).to(dev))
+        check_sampled_lcp(flat, pos, eng.lcp, seed=13)
+        del flat, pos, plain, plain_store
+        # where one more (uncached) batch spends its time
+        extra = sample_seeds(idx, rng, QUERY_BATCH, m)
+        dt, ms, _ = profiled(lambda e=extra: idx.count(e))
+        busy = sum(ms.values())
+        lat_ms = np.sort(np.array(lat)) * 1e3
+        n_q = len(batches) * QUERY_BATCH
+        report[name] = dict(
+            build_s=t_build, engine_s=t_engine, qps=n_q / t_query,
+            plain_qps=n_q / t_plain,
+            p50_ms=float(np.percentile(lat_ms, 50)),
+            p95_ms=float(np.percentile(lat_ms, 95)), peak_gib=peak / 2**30)
+        log(f"phase 7: {name}: {len(idx.sa)} suffixes; build with LCP "
+            f"{t_build:.3f} s, engine set-up (LLCP/RLCP) {t_engine:.3f} s; "
+            f"{n_q} seeds of {m} in {len(batches)} count batches of "
+            f"{QUERY_BATCH}: {n_q / t_query:.0f} queries/s, batch p50 "
+            f"{report[name]['p50_ms']:.1f} ms p95 {report[name]['p95_ms']:.1f} ms; "
+            f"search_rounds {kstats['search_rounds']}, compare_rounds "
+            f"{kstats['compare_rounds']}, cache hits {kstats['cache_hits']} / "
+            f"misses {kstats['cache_misses']}, store requests "
+            f"{kstats['store_requests']}; peak {peak / 2**30:.2f} GiB; plain "
+            f"engine {n_q / t_plain:.0f} queries/s")
+        log(f"phase 7: {name}: one more batch profiled: wall {dt * 1e3:.1f} ms, "
+            f"device busy {busy:.1f} ms ({100 * busy / (dt * 1e3):.1f} % of wall); "
+            f"by kind: {by_kind(ms)}")
+        log(f"phase 7: {name}: {'align' if corpus.ndim == 2 else 'locate'} of "
+            f"{len(seeds)} seeds of {m}: {sum(len(h) for h in hits)} hits; "
+            f"launches {launched}; kernel == plain engine (ranges, hits, "
+            f"engine_stats), the hit batch's ranges checked at their edges, "
+            f"{PAIR_SAMPLES} sampled LCP values exact, every seed found")
+        idx.close()
+        del idx, eng, sa
+    return counts, report
 
 
 def main() -> int:
@@ -388,18 +736,23 @@ def main() -> int:
 
     kern = phase_kernels(dev, reads_corpus, text_tokens)
     phase_small_builds(dev)
+    phase_small_indexes(dev)
     counts = phase_full_builds(dev, reads_corpus, text_tokens)
     phase_profile([(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)])
+    query_counts, _ = phase_queries(dev, reads_corpus, text_tokens)
+    counts.update(query_counts)
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",
                         "src/repro/kernels/prefix_pack.py:46"),
         "window_gather": ("src/repro_torch/kernels/csrc/window_gather.cu",
                           "src/repro/kernels/window_gather.py:33"),
+        "pattern_cmp": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
+                        "src/repro/kernels/pattern_cmp.py:59"),
     }
     log("kernels: " + "; ".join(
-        f"{k} launches={counts[KERNEL_BUILD[k]][k]} in the {KERNEL_BUILD[k]} build "
-        f"(by build: {', '.join(f'{b} {c[k]}' for b, c in counts.items())}) "
+        f"{k} launches={counts[KERNEL_BUILD[k]][k]} in the {KERNEL_BUILD[k]} run "
+        f"(by run: {', '.join(f'{b} {c[k]}' for b, c in counts.items())}) "
         f"equal=True max_abs_err={kern[k]['max_abs_err']}" for k in sources))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [

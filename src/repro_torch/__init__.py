@@ -2,13 +2,16 @@
 
 Public surface::
 
-    from repro_torch import SAConfig, build_suffix_array_auto
+    from repro_torch import SAConfig, SuffixArrayIndex, build_suffix_array_auto
 
     res = build_suffix_array_auto(reads, cfg=SAConfig(vocab_size=4))
     res.suffix_array; res.footprint; res.stats
 
+    idx = SuffixArrayIndex.build(reads, cfg=SAConfig(vocab_size=4))
+    idx.count(pattern); idx.locate(pattern); idx.align(pattern)
+
 The port mirrors the ``repro`` package module by module and gives the same
-suffix array, ``Footprint`` and ``stats``.  It imports ``torch`` and numpy,
+suffix array, ``Footprint``, ``stats``, LCP array and query answers.  It imports ``torch`` and numpy,
 never ``jax`` or ``repro``.  Entry points run on ``cuda:0`` unless the caller
 passes ``device="cpu"``.
 
@@ -18,12 +21,18 @@ from __future__ import annotations
 
 __all__ = [
     "SAConfig",
+    "SuperblockConfig",
+    "SuffixArrayIndex",
+    "ShardedSAEngine",
     "build_suffix_array",
     "build_suffix_array_auto",
 ]
 
 _LAZY = {
     "SAConfig": ("repro_torch.config", "SAConfig"),
+    "SuperblockConfig": ("repro_torch.config", "SuperblockConfig"),
+    "SuffixArrayIndex": ("repro_torch.serve.sa_engine", "SuffixArrayIndex"),
+    "ShardedSAEngine": ("repro_torch.serve.sa_engine", "ShardedSAEngine"),
     "build_suffix_array": ("repro_torch.core.pipeline", "build_suffix_array"),
     "build_suffix_array_auto": ("repro_torch.core.superblock",
                                 "build_suffix_array_auto"),

@@ -1,13 +1,15 @@
 """Suffix-array configuration of the port.
 
-A copy of ``repro.config.SAConfig`` with the same fields, defaults and
-derived values (``tests/test_torch_config.py`` holds the two together).
+Copies of ``repro.config.SAConfig`` and ``repro.config.SuperblockConfig``
+with the same fields, defaults and derived values
+(``tests/test_torch_config.py`` holds them together).
 ``use_pallas`` keeps its name: in the port it selects the hand-written
 CUDA kernels instead of their plain PyTorch versions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -60,6 +62,47 @@ class SAConfig:
         return self.resolved_chars_per_word() * self.key_words
 
 
+@dataclass(frozen=True)
+class SuperblockConfig:
+    """Out-of-core superblock construction (see ``repro.config``).
+
+    The port runs only the single-block path so far: one pipeline run, then
+    the post-hoc LCP array under ``emit_lcp``.  A plan of more than one
+    superblock, ``resume``, ``sanitize`` and ``store_retries > 0`` are
+    ROADMAP.md item 9; ``spill_dir``, ``write_manifest`` and the chunked
+    store backend are item 8.  The fields are kept whole so a JAX run's
+    configuration carries across unchanged.
+    """
+
+    max_records_per_run: int = 0
+    num_superblocks: int = 0
+    samples_per_block: int = 32
+    request_capacity: int = 4096
+    merge_algorithm: str = "merge_path"
+    merge_tile: int = 0
+    merge_backend: str = "host"
+    store_backend: str = "memory"
+    chunk_records: int = 0
+    cache_budget_bytes: int = 0
+    spill_dir: Optional[str] = None
+    emit_lcp: bool = False
+    write_manifest: bool = False
+    sanitize: bool = False
+    pipeline_depth: int = 1
+    resume: bool = False
+    store_retries: int = 0
+    store_backoff_s: float = 0.01
+
+
+def _from_reference(cls, d: dict):
+    names = {f.name for f in fields(cls)}
+    if set(d) != names:
+        raise ValueError(
+            f"{cls.__name__} fields differ: missing {sorted(names - set(d))}, "
+            f"unknown {sorted(set(d) - names)}")
+    return cls(**d)
+
+
 def sa_config_from_reference(d: dict) -> SAConfig:
     """``dataclasses.asdict`` of a ``repro.config.SAConfig`` -> the port's.
 
@@ -67,9 +110,10 @@ def sa_config_from_reference(d: dict) -> SAConfig:
     this is how a run of the JAX package is carried across.  Raises
     ``ValueError`` when the field sets differ.
     """
-    names = {f.name for f in fields(SAConfig)}
-    if set(d) != names:
-        raise ValueError(
-            f"SAConfig fields differ: missing {sorted(names - set(d))}, "
-            f"unknown {sorted(set(d) - names)}")
-    return SAConfig(**d)
+    return _from_reference(SAConfig, d)
+
+
+def superblock_config_from_reference(d: dict) -> SuperblockConfig:
+    """``dataclasses.asdict`` of a ``repro.config.SuperblockConfig`` -> the
+    port's; raises ``ValueError`` when the field sets differ."""
+    return _from_reference(SuperblockConfig, d)

@@ -27,23 +27,25 @@ KERNEL_REGISTRY: Dict[str, KernelEntry] = {
     "bitonic_sort": KernelEntry("bitonic_sort_tiles", False,
                                 roadmap="queue 2, K6"),
     "merge_path": KernelEntry("merge_path_ranks", False, roadmap="item 9"),
-    "pattern_cmp": KernelEntry("pattern_cmp", False, roadmap="item 7"),
+    "pattern_cmp": KernelEntry("pattern_cmp", True, "pattern_cmp_ref"),
 }
 
 
 def reset_launch_counts() -> None:
     """Set every ported kernel's ``launches`` count to 0."""
-    from repro_torch.kernels import prefix_pack, window_gather
+    from repro_torch.kernels import pattern_cmp, prefix_pack, window_gather
 
     prefix_pack.prefix_pack.launches = 0
     window_gather.window_gather.launches = 0
+    pattern_cmp.pattern_cmp.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each ported kernel since the last reset."""
-    from repro_torch.kernels import prefix_pack, window_gather
+    from repro_torch.kernels import pattern_cmp, prefix_pack, window_gather
 
     return {
         "prefix_pack": prefix_pack.prefix_pack.launches,
         "window_gather": window_gather.window_gather.launches,
+        "pattern_cmp": pattern_cmp.pattern_cmp.launches,
     }

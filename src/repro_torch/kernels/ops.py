@@ -46,4 +46,8 @@ def merge_path_ranks(keys, block: int = 256):
 
 
 def pattern_cmp(sfx, pat, start, stop, block: int = 256):
-    _not_ported("pattern_cmp")
+    if sfx.device.type == "cpu":
+        return ref.pattern_cmp_ref(sfx, pat, start, stop)
+    from repro_torch.kernels.pattern_cmp import pattern_cmp as _pattern_cmp
+
+    return _pattern_cmp(sfx, pat, start, stop, block=block)

@@ -47,3 +47,26 @@ def test_config_from_reference_rejects_other_fields():
     d.pop("mode")
     with pytest.raises(ValueError, match="missing"):
         sa_config_from_reference(d)
+
+
+def test_superblock_config_fields_and_defaults_match():
+    from repro.config import SuperblockConfig as RefSB
+    from repro_torch.config import SuperblockConfig
+
+    ref = [(f.name, f.type, f.default) for f in dataclasses.fields(RefSB)]
+    port = [(f.name, f.type, f.default) for f in dataclasses.fields(SuperblockConfig)]
+    assert port == ref
+    assert dataclasses.asdict(SuperblockConfig()) == dataclasses.asdict(RefSB())
+
+
+def test_superblock_config_from_reference_round_trips():
+    from repro.config import SuperblockConfig as RefSB
+    from repro_torch.config import SuperblockConfig, superblock_config_from_reference
+
+    ref = RefSB(num_superblocks=3, emit_lcp=True, request_capacity=7,
+                spill_dir="/x", store_backoff_s=0.5)
+    port = superblock_config_from_reference(dataclasses.asdict(ref))
+    assert isinstance(port, SuperblockConfig)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    with pytest.raises(ValueError, match="unknown"):
+        superblock_config_from_reference({**dataclasses.asdict(ref), "extra": 1})

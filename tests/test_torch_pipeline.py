@@ -122,12 +122,37 @@ def test_auto_single_pass_equals_direct_build():
         assert res.stats == c.stats
 
 
-@pytest.mark.parametrize("sb", [
-    SuperblockConfig(num_superblocks=3),
-    SuperblockConfig(max_records_per_run=100),
-    SuperblockConfig(emit_lcp=True),
-    SuperblockConfig(write_manifest=True),
+@pytest.mark.parametrize("sb,item", [
+    (SuperblockConfig(num_superblocks=3), 9),
+    (SuperblockConfig(max_records_per_run=100), 9),
+    (SuperblockConfig(emit_lcp=True, num_superblocks=2), 9),
+    (SuperblockConfig(write_manifest=True), 8),
 ], ids=["superblocks", "budget", "lcp", "manifest"])
-def test_auto_refuses_out_of_core_plans(sb):
-    with pytest.raises(NotImplementedError, match="item 9"):
+def test_auto_refuses_out_of_core_plans(sb, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(10,), (1,), (7,), (100,), (9, 5), (40, 12)],
+                         ids=str)
+@pytest.mark.parametrize("knobs", [
+    dict(), dict(num_superblocks=1), dict(num_superblocks=3),
+    dict(num_superblocks=6), dict(num_superblocks=64),
+    dict(max_records_per_run=4), dict(max_records_per_run=30),
+    dict(max_records_per_run=1000), dict(max_records_per_run=1),
+], ids=str)
+def test_num_superblocks_matches_plan(shape, knobs):
+    """The block count after rounding the block size up to whole items: for
+    shape (10,) and num_superblocks=6 the plan has 5 blocks, not 6."""
+    import warnings
+
+    from repro.core.superblock import plan_superblocks
+    from repro_torch.core.superblock import num_superblocks
+
+    sb = SuperblockConfig(**knobs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = plan_superblocks(shape, RefConfig(**K4), sb).num_superblocks
+    assert num_superblocks(shape, sb) == want
+    if shape == (10,) and knobs == dict(num_superblocks=6):
+        assert want == 5

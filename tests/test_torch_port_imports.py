@@ -19,6 +19,8 @@ SLICE_MODULES = [
     "repro_torch.core.encoding",
     "repro_torch.core.distributed",
     "repro_torch.core.store",
+    "repro_torch.core.lcp",
+    "repro_torch.core.search",
     "repro_torch.core.pipeline",
     "repro_torch.core.superblock",
     "repro_torch.core.oracle",
@@ -30,7 +32,10 @@ SLICE_MODULES = [
     "repro_torch.kernels._build",
     "repro_torch.kernels.prefix_pack",
     "repro_torch.kernels.window_gather",
+    "repro_torch.kernels.pattern_cmp",
     "repro_torch.launch.sa_build",
+    "repro_torch.serve",
+    "repro_torch.serve.sa_engine",
 ]
 
 
@@ -48,6 +53,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "    importlib.import_module(m)\n"
         "import repro_torch\n"
         "repro_torch.SAConfig, repro_torch.build_suffix_array_auto\n"
+        "repro_torch.SuperblockConfig, repro_torch.SuffixArrayIndex\n"
+        "repro_torch.ShardedSAEngine\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
