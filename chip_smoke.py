@@ -32,7 +32,20 @@ each of which fails loudly:
    engine on the plain compare must give the same ranges and
    ``engine_stats()``; ``pattern_cmp`` must launch on the kernel engine and
    not on the plain one; every range is checked at its edges against the
-   tokens, and 2^20 sampled LCP values against a direct compare.
+   tokens, and 2^20 sampled LCP values against a direct compare;
+8. the out-of-core build: the 2^26-token text of phase 5 and its reads cut
+   to ``OOC_READS`` reads (same read length, alphabet and seed), with
+   ``SuperblockConfig(num_superblocks=4, emit_lcp=True)``, each built with
+   the kernels, on the plain path, and with the kernels and
+   ``merge_backend="device"``.  Every build's SA and LCP must equal the
+   in-core ones of the same corpus bit for bit (phases 5 and 7 for the
+   text; a checked in-core build for the cut reads); the kernel and plain
+   builds must give the same Footprint and stats (wall times aside);
+   nothing dropped or unresolved, ``peak_records <= capacity_records``;
+   ``merge_path`` must launch on the kernel path and not on the plain one.
+   A smaller kernel-path reads build is profiled, and its largest and
+   widest merge tiles (full tiles: 4 runs x 4096 heads) are held to the
+   plain ranks and timed.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -60,9 +73,21 @@ GATHER_M = 1 << 22
 PAIR_SAMPLES = 1 << 20
 READS_BUILD, TEXT_BUILD = "reads 1M x 200", "text 2^26"
 READS_QUERY, TEXT_QUERY = "reads query", "text query"
+# phase 8's reads cell: the corpus of phase 5 cut to OOC_READS reads (same
+# read length, alphabet and seed) so three builds fit the time limit (the
+# wall that forced the cut is in PERF.md); its profiled build is smaller
+# still, since the profiler's bookkeeping grows with the merge's op count
+OOC_READS = 125_000
+OOC_PROFILE_READS = 5_000
+READS_OOC = f"reads {OOC_READS // 1000}K x 200 out-of-core"
+TEXT_OOC = "text 2^26 out-of-core"
 # the full-size run whose main path each kernel lies on
 KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
-                "pattern_cmp": READS_QUERY}
+                "pattern_cmp": READS_QUERY, "merge_path": READS_OOC}
+# phase 8: superblocks of the out-of-core cells; full-size merge tiles of
+# phase 3 (C = 4 runs x 4096 heads)
+OOC_SUPERBLOCKS = 4
+MERGE_C = 4 * 4096
 # phase 7: (seeds, seed length) per index, sent as count batches of QUERY_BATCH
 QUERY_BATCH = 4096
 QUERIES = {READS_QUERY: (1 << 16, 24), TEXT_QUERY: (1 << 14, 16)}
@@ -115,6 +140,7 @@ def phase_kernels(dev, reads_corpus, text_tokens):
 
     from repro_torch.config import SAConfig
     from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import merge_path as mp_mod
     from repro_torch.kernels import pattern_cmp as pc_mod
     from repro_torch.kernels import prefix_pack as pp_mod
     from repro_torch.kernels import window_gather as wg_mod
@@ -139,8 +165,17 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         args = [torch.from_numpy(a).to(dev) for a in arrays]
         check_equal(f"pattern_cmp {name}", pc_mod.pattern_cmp(*args, block=block),
                     ref.pattern_cmp_ref(*args))
+    merge_cases = [(f"c={c} w={w} block={block}", cases.merge_inputs(c, w), block)
+                   for c, w, block in cases.MERGE_SHAPES]
+    merge_cases += [(f"edge {name}", cases.merge_edge_inputs(name), 256)
+                    for name in cases.MERGE_EDGE]
+    for name, keys, block in merge_cases:
+        keys = torch.from_numpy(keys).to(dev)
+        check_equal(f"merge_path_ranks {name}",
+                    mp_mod.merge_path_ranks(keys, block=block),
+                    ref.merge_path_ranks_ref(keys))
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes "
-        "and pattern_cmp's edge rows")
+        "and the edge rows of pattern_cmp and merge_path_ranks")
 
     out = {}
     # prefix_pack at the text Map's shape: the 2^26 tokens plus the K-token halo
@@ -220,11 +255,65 @@ def phase_kernels(dev, reads_corpus, text_tokens):
     log(f"phase 3: pattern_cmp B={b}: device time {dev_ms[key] / launches[key]:.4f} ms "
         f"a launch (profiler, {launches[key]} launches); CUDA events "
         f"{out['pattern_cmp']['ms']:.4f} ms a call, host launch path included")
+    # merge_path_ranks at the merge's full tile, C = 4 x 4096: four words (the
+    # depth-0 key words and the index words) and the widest row a reads
+    # merge can build (every window level, the tie column, the index words)
+    wide = (-(-(FULL_READ_LEN + 1) // k) + 2) * cfg.key_words + 3
+    for w in (4, wide):
+        keys = torch.from_numpy(merge_tile_keys(MERGE_C, w)).to(dev)
+        got = mp_mod.merge_path_ranks(keys)
+        check_equal(f"merge_path_ranks C={MERGE_C} W={w}", got,
+                    ref.merge_path_ranks_ref(keys))
+        m = merge_path_timing(keys)
+        log(f"phase 3: merge_path_ranks synthetic tile C={MERGE_C} W={w}: kernel "
+            f"{m['ms']:.4f} ms (device {m['device_ms']:.4f} ms a launch), plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
     for name, o in out.items():
         log(f"phase 3: {name} full size ({o['shape']}): kernel {o['ms']:.4f} ms, "
             f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
             f"({o['bound_by']}), "
             f"max|err| {o['max_abs_err']}")
+    return out
+
+
+def merge_tile_keys(c, w):
+    """A synthetic merge tile of ``c`` rows and ``w`` words: about 16 rows
+    share each leading word and the next words tie often, as neighbouring
+    suffixes of a real tile do; the last two are the index words (unique).
+    Seeded by ``c + w``."""
+    import numpy as np
+
+    rng = np.random.default_rng(c + w)
+    keys = np.zeros((c, w), np.int32)
+    keys[:, 0] = rng.integers(0, max(1, c // 16), size=c)  # ~16 rows a value
+    keys[:, 1 : w - 2] = rng.integers(0, 3, size=(c, w - 3))
+    keys[:, w - 1] = rng.permutation(c)  # index words: hi 0, lo unique
+    return keys
+
+
+def merge_path_bound(c, w):
+    """(bound ms, by): C·W·4 bytes read and C·4 written against 2·C² int32
+    operations (every pair is compared on word 0)."""
+    return byte_or_op_bound(4 * c * w + 4 * c, 2 * c * c)
+
+
+def merge_path_timing(keys, device_time=True):
+    """Kernel (CUDA events and, with ``device_time``, the profiler's device
+    time) and plain times of ``merge_path_ranks`` on ``keys``, with its
+    bound."""
+    from repro_torch.kernels import merge_path as mp_mod
+    from repro_torch.kernels import ref
+
+    c, w = keys.shape
+    bound_ms, bound_by = merge_path_bound(c, w)
+    out = dict(ms=time_ms(lambda: mp_mod.merge_path_ranks(keys), 20),
+               plain_ms=time_ms(lambda: ref.merge_path_ranks_ref(keys), 3),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if device_time:
+        _, dev_ms, launches = profiled(
+            lambda: [mp_mod.merge_path_ranks(keys) for _ in range(20)])
+        key = next(key for key in dev_ms if "merge_path" in key)
+        out["device_ms"] = dev_ms[key] / launches[key]
     return out
 
 
@@ -264,6 +353,95 @@ def phase_small_builds(dev):
         if counts[kernel] <= 0:
             raise AssertionError(f"phase 4: {name}: {kernel} not launched: {counts}")
         log(f"phase 4: {name} == oracle on {dev}; launches {counts}")
+
+
+def oracle_lcp(corpus, sa, stride_bits):
+    """Brute-force LCP of consecutive suffixes of a small corpus: common
+    leading tokens, a suffix ending at its first 0 (reads) or the text end."""
+    import numpy as np
+
+    def tokens(g):
+        if corpus.ndim == 1:
+            return corpus[g:]
+        row = corpus[g >> stride_bits, g & ((1 << stride_bits) - 1):]
+        return row[: np.argmax(row == 0)] if (row == 0).any() else row
+
+    out = np.zeros(len(sa), np.int64)
+    for i in range(1, len(sa)):
+        a, b = tokens(int(sa[i - 1])), tokens(int(sa[i]))
+        n = min(len(a), len(b))
+        diff = np.flatnonzero(a[:n] != b[:n])
+        out[i] = diff[0] if diff.size else n
+    return out
+
+
+def phase_small_out_of_core(dev):
+    """Small out-of-core builds on the card with the kernels, three
+    superblocks and the merge's LCP: SA against the numpy oracle, LCP
+    against a brute-force compare; ``merge_path`` must launch in every
+    build whose merge had two runs or more."""
+    import numpy as np
+
+    from repro_torch.config import SAConfig, SuperblockConfig
+    from repro_torch.core import superblock
+    from repro_torch.core.oracle import naive_sa_reads, naive_sa_text
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = SAConfig(vocab_size=4, chars_per_word=2, key_words=2, use_pallas=True)
+    rng = np.random.default_rng(5)
+    reads = rng.integers(1, 5, size=(48, 12)).astype(np.int32)
+    lens = rng.integers(0, 11, size=(30,)).astype(np.int32)
+    var = np.zeros((30, 11), np.int32)
+    for i, n in enumerate(lens):
+        var[i, :n] = rng.integers(1, 5, size=(n,))
+    rep = np.tile(np.array([1, 2] * 6, np.int32), (36, 1))
+    text = rng.integers(1, 5, size=(600,)).astype(np.int32)
+    atat = np.tile(np.array([1, 2], np.int32), 120)
+    cases = [  # (name, corpus, lengths, SuperblockConfig overrides)
+        ("reads", reads, None, {}),
+        ("variable-length reads", var, lens, {}),
+        ("repetitive reads", rep, None, {}),
+        ("random text", text, None, {}),
+        ("repetitive text", atat, None, {}),
+        ("reads, merge_tile=2", reads, None, dict(merge_tile=2)),
+        ("reads, merge_backend=device", reads, None, dict(merge_backend="device")),
+        ("repetitive reads, merge_backend=device", rep, None,
+         dict(merge_backend="device")),
+    ]
+    merged_runs = []
+    real = superblock._merge_path_runs
+
+    def spy(store, runs, *args, **kw):  # the merge's run count
+        merged_runs.append(sum(1 for r in runs if r.shape[0]))
+        return real(store, runs, *args, **kw)
+
+    superblock._merge_path_runs = spy
+    try:
+        for name, corpus, lengths, over in cases:
+            sb = SuperblockConfig(num_superblocks=3, emit_lcp=True, **over)
+            merged_runs.clear()
+            reset_launch_counts()
+            res = superblock.build_suffix_array_superblock(
+                corpus, lengths=lengths, cfg=cfg, sb=sb, device=dev)
+            counts = launch_counts()
+            want = (naive_sa_text(corpus) if corpus.ndim == 1
+                    else naive_sa_reads(corpus, lengths))
+            stride = 0 if corpus.ndim == 1 else int(np.ceil(np.log2(corpus.shape[1] + 1)))
+            if not np.array_equal(res.suffix_array, want):
+                raise AssertionError(f"phase 4: out-of-core {name}: SA != oracle")
+            if not np.array_equal(res.lcp, oracle_lcp(corpus, want, stride)):
+                raise AssertionError(f"phase 4: out-of-core {name}: LCP != brute force")
+            if res.stats["dropped"] or res.stats["unresolved"]:
+                raise AssertionError(f"phase 4: out-of-core {name}: {res.stats}")
+            runs = max(merged_runs, default=0)
+            if (runs >= 2) != (counts["merge_path"] > 0):
+                raise AssertionError(f"phase 4: out-of-core {name}: merge of {runs} "
+                                     f"runs, launches {counts}")
+            log(f"phase 4: out-of-core {name} == oracle (SA, LCP) on {dev}, "
+                f"{res.stats['superblocks']} superblocks, merge of {runs} runs; "
+                f"launches {counts}")
+    finally:
+        superblock._merge_path_runs = real
 
 
 def brute_text(text, pat):
@@ -438,12 +616,12 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
         log(f"phase 5: {name}: kernel == plain (SA, Footprint, stats), 0 dropped, "
             f"0 unresolved, permutation ok, {PAIR_SAMPLES} sampled pairs ordered")
         del sa, flat, pos
-    return counts
+    return counts, {name: results[(name, True)].suffix_array for name, _ in builds}
 
 
 KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
     ("prefix_pack", "prefix_pack"), ("window_gather", "window_gather"),
-    ("pattern_cmp", "pattern_cmp"),
+    ("pattern_cmp", "pattern_cmp"), ("merge_path", "merge_path"),
     ("gather", "gather"),
     ("RadixSort", "sort"), ("radix", "sort"), ("sort", "sort"),
     ("scan", "scan"), ("scatter", "scatter"), ("index", "index"),
@@ -594,7 +772,7 @@ def phase_queries(dev, reads_corpus, text_tokens):
     from repro_torch.launch.sa_build import make_config
     from repro_torch.serve.sa_engine import SuffixArrayIndex
 
-    counts, report = {}, {}
+    counts, report, lcps = {}, {}, {}
     for name, corpus in ((READS_QUERY, reads_corpus), (TEXT_QUERY, text_tokens)):
         n_seeds, m = QUERIES[name]
         rng = np.random.default_rng(11)
@@ -695,9 +873,181 @@ def phase_queries(dev, reads_corpus, text_tokens):
             f"launches {launched}; kernel == plain engine (ranges, hits, "
             f"engine_stats), the hit batch's ranges checked at their edges, "
             f"{PAIR_SAMPLES} sampled LCP values exact, every seed found")
+        lcps[name] = idx.lcp
         idx.close()
         del idx, eng, sa
-    return counts, report
+    return counts, report, lcps
+
+
+def stats_without_walls(stats):
+    return {k: v for k, v in stats.items() if not k.startswith("t_")}
+
+
+def capture_tiles(fn):
+    """Run ``fn`` with the merge's ``merge_path_ranks`` calls watched: returns
+    the largest tile (most rows, then most words) and the widest tile (most
+    words, then most rows) it ranked, as copies."""
+    from repro_torch.kernels import ops
+
+    real = ops.merge_path_ranks
+    seen = {}
+
+    def spy(keys, block=256):
+        c, w = keys.shape
+        for kind, rank in (("largest", (c, w)), ("widest", (w, c))):
+            if rank > seen.get(kind, ((0, 0), None))[0]:
+                seen[kind] = (rank, keys.clone())
+        return real(keys, block=block)
+
+    ops.merge_path_ranks = spy
+    try:
+        fn()
+    finally:
+        ops.merge_path_ranks = real
+    return {kind: keys for kind, (_, keys) in seen.items()}
+
+
+def incore_reference(dev, corpus):
+    """In-core SA and LCP of a reads corpus on the kernel path (one
+    superblock, the post-hoc LCP), checked as phases 5 and 7 check theirs:
+    a permutation of the valid suffixes, 2^20 sampled pairs in order, 2^20
+    sampled LCP values exact."""
+    import math
+
+    import torch
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.core.superblock import build_suffix_array_superblock
+    from repro_torch.launch import sa_build
+
+    t0 = time.perf_counter()
+    res = build_suffix_array_superblock(
+        corpus, cfg=sa_build.make_config("base", "cuda"),
+        sb=SuperblockConfig(emit_lcp=True), device=dev)
+    sa = torch.from_numpy(res.suffix_array).to(dev)
+    r, l = corpus.shape
+    sb = math.ceil(math.log2(l + 1))
+    expected = ((torch.arange(r, device=dev)[:, None] << sb)
+                | torch.arange(l + 1, device=dev)[None, :]).reshape(-1)
+    check_permutation(sa, expected)
+    flat, pos = token_layout(corpus, sa, sb)
+    check_sampled_order(flat, pos, sa, seed=7)
+    check_sampled_lcp(flat, pos, torch.from_numpy(res.lcp).to(dev), seed=13)
+    log(f"phase 8: in-core reference of the {r}-read corpus: "
+        f"{time.perf_counter() - t0:.3f} s; permutation ok, {PAIR_SAMPLES} sampled "
+        f"pairs ordered, {PAIR_SAMPLES} sampled LCP values exact")
+    return res.suffix_array, res.lcp
+
+
+def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
+    """The out-of-core build (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.kernels import merge_path as mp_mod
+    from repro_torch.launch import sa_build
+
+    want_sa = {TEXT_OOC: incore_sa[TEXT_BUILD]}
+    want_lcp = {TEXT_OOC: incore_lcp[TEXT_QUERY]}
+    if OOC_READS == reads_corpus.shape[0]:
+        ooc_reads = reads_corpus
+        want_sa[READS_OOC] = incore_sa[READS_BUILD]
+        want_lcp[READS_OOC] = incore_lcp[READS_QUERY]
+    else:
+        ooc_reads = synth_dna_reads(OOC_READS, FULL_READ_LEN, seed=0)
+        want_sa[READS_OOC], want_lcp[READS_OOC] = incore_reference(dev, ooc_reads)
+    cells = [(READS_OOC, ooc_reads), (TEXT_OOC, text_tokens)]
+    paths = [("kernels", True, "host"), ("plain", False, "host"),
+             ("kernels, device merge", True, "device")]
+    counts, report = {}, {}
+    for name, corpus in cells:
+        kept = {}
+        for label, use_pallas, backend in paths:
+            cfg = sa_build.make_config("base", "cuda", use_pallas=use_pallas)
+            sb = SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True,
+                                  merge_backend=backend)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            res, dt = sa_build.run(corpus, cfg, dev.type, sb=sb)
+            launched = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            st = res.stats
+            n = st["num_suffixes"]
+            log(f"phase 8: {name} [{label}]: {dt:.3f} s wall, {n / dt:.0f} suffixes/s, "
+                f"peak {peak / 2**30:.2f} GiB; superblocks {st['superblocks']}, "
+                f"capacity_records {st['capacity_records']}, peak_records "
+                f"{st['peak_records']}, merge_fetch_rounds {st['merge_fetch_rounds']}, "
+                f"_requests {st['merge_fetch_requests']}, _bytes "
+                f"{st['merge_fetch_bytes']}, merge_pieces {st['merge_pieces']}, "
+                f"block_rounds {st['block_rounds']}, t_stage_s {st['t_stage_s']}, "
+                f"t_build_s {st['t_build_s']}, t_merge_s {st['t_merge_s']}; "
+                f"launches {launched}")
+            if not np.array_equal(res.suffix_array, want_sa[name]):
+                raise AssertionError(f"{name} [{label}]: SA != the in-core SA")
+            if not np.array_equal(res.lcp, want_lcp[name]):
+                raise AssertionError(f"{name} [{label}]: LCP != the in-core LCP")
+            if st["dropped"] or st["unresolved"]:
+                raise AssertionError(f"{name} [{label}]: {st}")
+            if not st["peak_records"] <= st["capacity_records"]:
+                raise AssertionError(f"{name} [{label}]: peak_records over capacity")
+            if use_pallas and launched["merge_path"] <= 0:
+                raise AssertionError(f"{name} [{label}]: merge_path not launched")
+            if not use_pallas and any(launched.values()):
+                raise AssertionError(f"{name} [{label}]: plain path launched {launched}")
+            kept[label] = (dataclasses.asdict(res.footprint), stats_without_walls(st))
+            report[(name, label)] = dict(wall_s=dt, suffixes_per_s=n / dt,
+                                         peak_gib=peak / 2**30, stats=st)
+            if label == "kernels":
+                counts[name] = launched
+            del res
+        if kept["kernels"] != kept["plain"]:
+            raise AssertionError(f"{name}: kernel and plain paths differ "
+                                 "(Footprint or stats)")
+        log(f"phase 8: {name}: kernels == plain (SA, LCP, Footprint, stats); every "
+            f"path's SA and LCP == the in-core ones of the same corpus; 0 dropped, "
+            f"0 unresolved, peak_records <= capacity_records")
+
+    # one profiled kernel-path reads build, its largest and widest tiles kept
+    cfg = sa_build.make_config("base", "cuda")
+    sb = SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True)
+    small = synth_dna_reads(OOC_PROFILE_READS, FULL_READ_LEN, seed=0)
+    torch.cuda.empty_cache()
+    prof = []
+    tiles = capture_tiles(lambda: prof.extend(
+        profiled(lambda: sa_build.run(small, cfg, dev.type, sb=sb))))
+    wall, ms, _ = prof
+    busy = sum(ms.values())
+    log(f"phase 8: reads {OOC_PROFILE_READS} x 200 out-of-core profiled: wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / (wall * 1e3):.1f} % of wall)")
+    log("  by kind: " + by_kind(ms))
+    for key, t in sorted(ms.items(), key=lambda x: -x[1])[:8]:
+        log(f"  {t:9.2f} ms  {key[:100]}")
+    tile_report = {}
+    for kind, keys in tiles.items():
+        got = mp_mod.merge_path_ranks(keys)
+        want = ref.merge_path_ranks_ref(keys)
+        check_equal(f"merge_path_ranks {kind} tile {tuple(keys.shape)}", got, want)
+        if not torch.equal(torch.sort(got.long()).values,
+                           torch.arange(keys.shape[0], device=keys.device)):
+            raise AssertionError(f"{kind} tile's ranks are not a permutation")
+        # CUDA events only: a launch takes over a millisecond, so the host
+        # launch path is noise here, and phase 3 reads the profiler's
+        # device time at the same C
+        m = merge_path_timing(keys, device_time=False)
+        m.update(max_abs_err=max_abs_err(got, want), shape=tuple(keys.shape))
+        tile_report[kind] = m
+        log(f"phase 8: merge_path_ranks on the {kind} tile of the reads merge "
+            f"(C, W) = {tuple(keys.shape)}: kernel == plain, ranks a permutation; "
+            f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
+    return counts, report, tile_report
 
 
 def main() -> int:
@@ -737,10 +1087,15 @@ def main() -> int:
     kern = phase_kernels(dev, reads_corpus, text_tokens)
     phase_small_builds(dev)
     phase_small_indexes(dev)
-    counts = phase_full_builds(dev, reads_corpus, text_tokens)
+    phase_small_out_of_core(dev)
+    counts, incore_sa = phase_full_builds(dev, reads_corpus, text_tokens)
     phase_profile([(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)])
-    query_counts, _ = phase_queries(dev, reads_corpus, text_tokens)
+    query_counts, _, incore_lcp = phase_queries(dev, reads_corpus, text_tokens)
     counts.update(query_counts)
+    ooc_counts, _, tiles = phase_out_of_core(dev, reads_corpus, text_tokens,
+                                             incore_sa, incore_lcp)
+    counts.update(ooc_counts)
+    kern["merge_path"] = tiles["largest"]
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",
@@ -749,6 +1104,8 @@ def main() -> int:
                           "src/repro/kernels/window_gather.py:33"),
         "pattern_cmp": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
                         "src/repro/kernels/pattern_cmp.py:59"),
+        "merge_path": ("src/repro_torch/kernels/csrc/merge_path.cu",
+                       "src/repro/kernels/merge_path.py:52"),
     }
     log("kernels: " + "; ".join(
         f"{k} launches={counts[KERNEL_BUILD[k]][k]} in the {KERNEL_BUILD[k]} run "

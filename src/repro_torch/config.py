@@ -66,12 +66,16 @@ class SAConfig:
 class SuperblockConfig:
     """Out-of-core superblock construction (see ``repro.config``).
 
-    The port runs only the single-block path so far: one pipeline run, then
-    the post-hoc LCP array under ``emit_lcp``.  A plan of more than one
-    superblock, ``resume``, ``sanitize`` and ``store_retries > 0`` are
-    ROADMAP.md item 9; ``spill_dir``, ``write_manifest`` and the chunked
-    store backend are item 8.  The fields are kept whole so a JAX run's
-    configuration carries across unchanged.
+    The port runs one block in core (with the post-hoc LCP array under
+    ``emit_lcp``) and a plan of more blocks through the merge-path merge
+    with the in-memory store, on either ``merge_backend``, at any
+    ``merge_tile`` and ``pipeline_depth``, with the LCP array emitted by the
+    merge.  ``merge_algorithm="kway"``/``"rerank"``, ``resume``,
+    ``sanitize`` and ``store_retries > 0`` are ROADMAP.md item 9b;
+    ``spill_dir``, ``write_manifest`` and the chunked store backend
+    (``store_backend="chunked"``, ``chunk_records``, ``cache_budget_bytes``)
+    are item 8.  The fields are kept whole so a JAX run's configuration
+    carries across unchanged.
     """
 
     max_records_per_run: int = 0

@@ -100,24 +100,34 @@ def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 def lex_sort(keys, carry=()):
     """``lax.sort(keys + carry, num_keys=len(keys))`` for int32 tensors.
 
-    Keys are most significant first; pairs of them are packed into one
-    int64 (:func:`_pair_key`) and sorted from the least significant pair up
-    with stable sorts, so equal keys keep their order, as ``lax.sort`` does.
-    Returns the sorted keys followed by the carried tensors.
+    Keys are most significant first; equal keys keep their order, as
+    ``lax.sort`` does (:func:`lex_order`).  Returns the sorted keys
+    followed by the carried tensors.
     """
     keys, carry = list(keys), list(carry)
-    groups = []
+    perm = lex_order(keys)
+    return [t[perm] for t in keys + carry]
+
+
+def lex_order(keys) -> torch.Tensor:
+    """The stable permutation that sorts rows by ``keys``, most significant
+    first: ``np.lexsort(keys[::-1])`` for int32, int64 or bool tensors.
+
+    Adjacent int32 keys are packed in pairs (:func:`_pair_key`); each sort
+    is stable, from the least significant key up.
+    """
+    keys = [k.to(torch.int32) if k.dtype == torch.bool else k for k in keys]
+    perm = None
     i = len(keys)
     while i > 0:
-        j = max(0, i - 2)
-        groups.append(keys[j:i])
-        i = j
-    perm = None
-    for grp in groups:  # least significant first
-        key = grp[0] if len(grp) == 1 else _pair_key(grp[0], grp[1])
+        if i >= 2 and keys[i - 1].dtype == keys[i - 2].dtype == torch.int32:
+            key = _pair_key(keys[i - 2], keys[i - 1])
+            i -= 2
+        else:
+            key = keys[i - 1]
+            i -= 1
         if perm is not None:
             key = key[perm]
         p = torch.sort(key, stable=True).indices
-        del key
         perm = p if perm is None else perm[p]
-    return [t[perm] for t in keys + carry]
+    return perm

@@ -34,8 +34,7 @@ def pairwise_lcp(store: CorpusStore, a, b) -> torch.Tensor:
     for depth in range(store.max_window_depth):
         if live.numel() == 0:
             return out
-        wa = store.fetch_windows(a[live], depth)
-        wb = store.fetch_windows(b[live], depth)
+        wa, wb = store.fetch_window_pair(a[live], b[live], depth)
         stop = (wa != wb) | ((wa == 0) & (wb == 0))
         resolved = stop.any(dim=1)
         first = stop.to(torch.uint8).argmax(dim=1)

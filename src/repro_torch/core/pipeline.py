@@ -11,6 +11,9 @@ The port of ``repro.core.pipeline.build_suffix_array``.  Dataflow:
              the window_gather kernel) in a host loop until no tie is left
   Output   : the sorted index run == the suffix array
 
+:class:`DeviceRefiner` is the same reduce loop over an arbitrary set of
+suffix indexes: the out-of-core merge's ``merge_backend="device"``.
+
 Translations from the JAX package: ``lax.while_loop`` is a host loop whose
 condition reads one device scalar per round; ``lax.sort(num_keys=k)`` is
 :func:`repro_torch.core.distributed.lex_sort`; ``segment_min`` is
@@ -34,9 +37,11 @@ from repro_torch.core.distributed import (
     run_starts,
     sample_splitters,
 )
-from repro_torch.core.store import StoreSpec, serve_windows, token_bytes
+from repro_torch.core.store import StoreSpec, mget_window, serve_windows, token_bytes
 from repro_torch.core.types import (
     KEY_SENTINEL,
+    WORD_BITS,
+    WORD_MOD,
     Footprint,
     SAResult,
     global_index,
@@ -391,3 +396,153 @@ def _finalize(ih, il, statmat, corpus, cfg: SAConfig) -> SAResult:
         "unresolved": int(statmat[:, 8].sum()),
     }
     return SAResult(suffix_array=sa, footprint=fp, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Device-side index-set refinement (the out-of-core merge's device backend)
+# ---------------------------------------------------------------------------
+
+
+def _refiner_fn(idx_hi, idx_lo, reads_l, lengths_l, halo_l, *, cfg: SAConfig,
+                rows_per_shard: int, row_len: int, stride_bits: int, cap: int,
+                max_rounds: int, uniform_len, text_mode: bool, text_len: int):
+    """Rank an arbitrary suffix-index set at one shard
+    (``repro.core.pipeline._refiner_fn``).
+
+    Padding slots carry ``idx_hi == -1``.  The depth-0 windows come from
+    :func:`mget_window`; the records are bucketed and sorted as the
+    pipeline's reducer sorts them, and still-tied groups refine with
+    :func:`_refine_tie_groups`.  ``cap`` is the padded batch length; the
+    fetch capacity is ``cap``, so nothing drops.  Returns ``(ih, il,
+    statvec)`` with statvec ``[count, requests, request_bytes,
+    response_bytes, rounds, retries, unresolved, max_depth]``.
+    """
+    d = 1
+    valid0 = idx_hi >= 0
+    spec = StoreSpec(num_shards=d, rows_per_shard=rows_per_shard,
+                     row_len=row_len, request_capacity=d * cap)
+    if text_mode:
+        store_local = torch.cat([reads_l.reshape(-1), halo_l.reshape(-1)])[:, None]
+        row = torch.where(valid0, idx_lo, 0)
+        off = torch.zeros_like(idx_lo)
+    else:
+        store_local = reads_l
+        row, off = unpack_index(idx_hi, idx_lo, stride_bits)
+    win, exh0, _, fs0 = mget_window(store_local, row, off, valid0, spec, cfg)
+    words = win if cfg.server_pack else encoding.pack_words(win, cfg)
+    kh = torch.where(valid0, words[:, 0], KEY_SENTINEL)
+    kl = torch.where(valid0, words[:, 1], KEY_SENTINEL)
+    rec = torch.stack([kh, kl, torch.where(valid0, idx_hi, KEY_SENTINEL),
+                       torch.where(valid0, idx_lo, KEY_SENTINEL),
+                       exh0.to(torch.int32)], dim=1)
+    s_hi, s_lo = sample_splitters(kh, kl, cfg.samples_per_shard)
+    bucket = torch.where(valid0, lex_bucket(kh, kl, s_hi, s_lo), d)
+    buf, slot, _ = bucket_scatter(rec, bucket, d + 1, cap, KEY_SENTINEL)
+    drop = torch.sum(valid0 & (slot >= d * cap))
+    recv = exchange(buf[:d]).reshape(d * cap, 5)
+    kh, kl, ih, il, exh_i = lex_sort([recv[:, i].contiguous() for i in range(4)],
+                                     [recv[:, 4].contiguous()])
+    validr = ih != KEY_SENTINEL
+    g = _run_groups([kh, kl], validr)
+
+    analytic = text_mode or (uniform_len is not None)
+    if analytic:
+        exhausted = _suffix_exhausted(
+            ih, il, 1, text_mode=text_mode, text_len=text_len,
+            uniform_len=uniform_len, stride_bits=stride_bits, k=cfg.prefix_len,
+        )
+    else:
+        exhausted = exh_i > 0  # resolved by the depth-0 fetch flags
+    exhausted = exhausted | ~validr
+
+    g, ih, il, exhausted, _, stats = _refine_tie_groups(
+        g, ih, il, exhausted, store_local=store_local, spec=spec, cfg=cfg,
+        analytic=analytic, text_mode=text_mode, text_len=text_len,
+        uniform_len=uniform_len, stride_bits=stride_bits,
+        hard_cap=2 * max_rounds + 8,
+    )
+    validr = ih != KEY_SENTINEL
+    statvec = torch.stack([
+        torch.sum(validr),
+        stats["fetch_requests"] + fs0.requests,
+        stats["fetch_request_bytes"] + fs0.request_bytes,
+        stats["fetch_response_bytes"] + fs0.response_bytes,
+        torch.tensor(stats["iters"] + 1, device=ih.device),  # incl. depth 0
+        stats["retries"] + fs0.dropped + drop,
+        torch.sum(_tied(g) & ~exhausted & validr),
+        stats["max_depth"],
+    ]).long()
+    return ih, il, statvec
+
+
+class DeviceRefiner:
+    """Device-resident ranking of arbitrary suffix-index sets
+    (``repro.core.pipeline.DeviceRefiner`` at world size 1).
+
+    The out-of-core merge's ``merge_backend="device"``: where the host merge
+    would rank a batch of global suffix indexes with store fetches, this
+    runs the pipeline's group-synchronous refinement loop over a copy of
+    the corpus on ``device``.  Batches are padded to the next power of two,
+    as the JAX class pads them, so the fetch counters (``requests``,
+    ``request_bytes``, ``response_bytes``, ``rounds``) and
+    ``peak_records`` equal the JAX package's.
+    """
+
+    def __init__(self, corpus, cfg: SAConfig, lengths=None, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        corpus = np.asarray(corpus, np.int32)
+        self.info = plan(corpus.shape, cfg, 1, lengths)
+        self._data, self._lens, self._halo = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in _shard_inputs(corpus, lengths, cfg, 1, self.info))
+        # accounting (read by the superblock merge)
+        self.requests = 0
+        self.request_bytes = 0
+        self.response_bytes = 0
+        self.rounds = 0
+        self.peak_records = 0
+        self.calls = 0
+
+    def refine(self, gidx) -> torch.Tensor:
+        """``gidx`` (int64 global suffix indexes) in exact suffix order, as
+        an int64 tensor on the refiner's device."""
+        gidx = torch.as_tensor(gidx, dtype=torch.int64, device=self.device)
+        m = int(gidx.shape[0])
+        if m <= 1:
+            return gidx.clone()
+        cap = 1 << max(0, m - 1).bit_length()
+        ih = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
+        il = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
+        ih[:m] = (gidx >> WORD_BITS).to(torch.int32)
+        il[:m] = (gidx & (WORD_MOD - 1)).to(torch.int32)
+        info = self.info
+        out_ih, out_il, statvec = _refiner_fn(
+            ih, il, self._data, self._lens, self._halo, cfg=self.cfg,
+            rows_per_shard=info["rows_per_shard"], row_len=info["row_len"],
+            stride_bits=info["stride_bits"], cap=cap,
+            max_rounds=info["max_rounds"], uniform_len=info["uniform_len"],
+            text_mode=info["text_mode"], text_len=info["text_len"],
+        )
+        count, req, req_b, resp_b, rounds, retries, unresolved, _ = (
+            statvec.tolist())
+        if unresolved > 0 or retries > 0:
+            raise RuntimeError(
+                "device refinement did not converge (unresolved ties/drops)")
+        self.calls += 1
+        self.requests += req
+        self.request_bytes += req_b
+        self.response_bytes += resp_b
+        self.rounds += rounds
+        self.peak_records = max(self.peak_records, m)
+        assert count == m, (count, m)
+        return (out_ih[:m].long() << WORD_BITS) | out_il[:m].long()
+
+
+def refine_indices(corpus, gidx, cfg: SAConfig = SAConfig(), lengths=None,
+                   device=None) -> np.ndarray:
+    """One-shot convenience wrapper over :class:`DeviceRefiner`; returns a
+    host int64 array, as the JAX package does."""
+    return DeviceRefiner(corpus, cfg, lengths=lengths,
+                         device=device).refine(gidx).cpu().numpy()
+

@@ -13,9 +13,11 @@ per capacity slot.
 
 Serving half (``StoreBackend``, ``InMemoryBackend``, ``CorpusStore``).  The
 JAX package keeps these on the host; in the port the backend's padded corpus
-is a tensor on its device, and ``CorpusStore.fetch_windows`` takes and
-returns tensors there.  The query engine, the post-hoc LCP and the
-single-block build go through it, with the JAX package's traffic counters.
+is a tensor on its device, and ``CorpusStore`` takes and returns tensors
+there.  The query engine, the post-hoc LCP, the per-superblock builds and
+the out-of-core merge (``fetch_keys``, ``gather_keys`` + ``note_fetched``,
+``rank_windows``, ``mget_window_host``, the merge frontier) go through it,
+with the JAX package's traffic and residency counters.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
-from repro_torch.core.distributed import bucket_scatter, exchange
+from repro_torch.core.distributed import bucket_scatter, exchange, lex_order
 from repro_torch.core.types import WORD_BITS
 from repro_torch.device import resolve_device
 
@@ -221,6 +223,22 @@ def _text_window(flat: torch.Tensor, local_pos: torch.Tensor, off: torch.Tensor,
     return padded[cols]
 
 
+_PLACE_VALUES = {}  # (base, digits, device) -> place values on the device
+
+
+def _place_values(base: int, digits: int, device) -> torch.Tensor:
+    """``base^(digits-1), ..., base^0`` as int64 (wrapped mod 2^64), made on
+    ``device`` once, so a pack issues no host-to-device copy."""
+    key = (base, digits, str(device))
+    place = _PLACE_VALUES.get(key)
+    if place is None:
+        powers = [pow(base, e, 1 << 64) for e in range(digits - 1, -1, -1)]
+        powers = [p - (1 << 64) if p >= 1 << 63 else p for p in powers]
+        place = _PLACE_VALUES[key] = torch.tensor(powers, dtype=torch.int64,
+                                                  device=device)
+    return place
+
+
 def pack_keys(windows: torch.Tensor, cfg: SAConfig) -> torch.Tensor:
     """(..., K) token windows -> (..., key_words) int32 key words.
 
@@ -231,18 +249,19 @@ def pack_keys(windows: torch.Tensor, cfg: SAConfig) -> torch.Tensor:
     w = windows.to(torch.int64)
     cpw = cfg.resolved_chars_per_word()
     assert w.shape[-1] == cpw * cfg.key_words, (tuple(w.shape), cpw * cfg.key_words)
+    if cfg.packing == "base":
+        # sum of token * base^place: the Horner loop's value mod 2^64, in a
+        # few tensor ops instead of two a token
+        place = _place_values(cfg.vocab_size + 1, cpw, w.device)
+        w = w.reshape(*w.shape[:-1], cfg.key_words, cpw)
+        return (w * place).sum(dim=-1).to(torch.int32)
     bits = max(1, int(cfg.vocab_size).bit_length())
     words = []
     for i in range(cfg.key_words):
         acc = torch.zeros(w.shape[:-1], dtype=torch.int64, device=w.device)
         for j in range(i * cpw, (i + 1) * cpw):
-            if cfg.packing == "base":
-                acc = acc * (cfg.vocab_size + 1) + w[..., j]
-            else:
-                acc = (acc << bits) | w[..., j]
-        if cfg.packing != "base":
-            acc = acc << (31 - bits * cpw)
-        words.append(acc.to(torch.int32))
+            acc = (acc << bits) | w[..., j]
+        words.append((acc << (31 - bits * cpw)).to(torch.int32))
     return torch.stack(words, dim=-1)
 
 
@@ -288,6 +307,8 @@ class StoreBackend:
             self.stride_bits = int(math.ceil(math.log2(row_len + 1)))
             self.max_len = row_len + 1
         self.cache_hits = 0
+        self.cache_misses = 0
+        self.corpus_bytes = items * row_len * 4  # int32 lanes
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -296,6 +317,11 @@ class StoreBackend:
     @property
     def resident_bytes(self) -> int:
         raise NotImplementedError
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.cache_hits + self.cache_misses
+        return self.cache_hits / total if total else 1.0
 
     def gather(self, gidx: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         """(m,) int64 global suffix ids -> (m, K) int32 windows at token
@@ -366,10 +392,11 @@ class CorpusStore:
     owns the traffic accounting of the JAX package: ``request_capacity``
     requests per service round, ``index_bytes`` per request (derived from
     the address space), ``K * token_bytes`` per raw-window response, and
-    ``peak_resident_bytes`` of the backend.  The out-of-core merge's calls
-    (``fetch_keys``, ``gather_keys``, ``rank_windows``, the retried
-    ``mget_window_host`` and the frontier that ``WindowCursor`` registers)
-    are ROADMAP.md item 9.
+    ``peak_resident_bytes`` of the backend plus the merge frontier that the
+    out-of-core merge registers with :meth:`add_frontier`.  A batch is
+    gathered at once where the JAX store loops over capacity chunks; the
+    counters grow exactly as that loop grows them.  ``WindowCursor`` (the
+    k-way merge's cache) is ROADMAP.md item 9b.
     """
 
     def __init__(self, corpus, cfg: SAConfig, request_capacity: int = 4096,
@@ -378,6 +405,7 @@ class CorpusStore:
             backend = InMemoryBackend(corpus, cfg, device=device)
         self.backend = backend
         self.cfg = cfg
+        self.key_words = cfg.key_words
         self.text_mode = backend.text_mode
         self.n = backend.n
         self.stride_bits = backend.stride_bits
@@ -390,8 +418,11 @@ class CorpusStore:
         self.requests = 0
         self.request_bytes = 0
         self.response_bytes = 0
+        self.retries = 0
         self.rounds = 0
         self.peak_windows = 0
+        # store-layer residency: backend + merge frontier
+        self.frontier_bytes = 0
         self.peak_resident_bytes = 0
         # per-block staging (separate from the fetch traffic)
         self.staged_items = 0
@@ -409,8 +440,15 @@ class CorpusStore:
         return -(-self.max_len // self.k) + 2
 
     def _note_resident(self) -> None:
-        self.peak_resident_bytes = max(self.peak_resident_bytes,
-                                       self.backend.resident_bytes)
+        cur = self.backend.resident_bytes + self.frontier_bytes
+        if cur > self.peak_resident_bytes:
+            self.peak_resident_bytes = cur
+
+    def add_frontier(self, delta_bytes: int) -> None:
+        """Register merge-frontier residency (the tile buffers' deltas)."""
+        self.frontier_bytes += delta_bytes
+        if delta_bytes > 0:
+            self._note_resident()
 
     # -- per-block staging --------------------------------------------------
     def stage_read(self, lo: int, hi: int) -> np.ndarray:
@@ -430,6 +468,14 @@ class CorpusStore:
         self.note_staged(lo, hi, out.nbytes)
         return out
 
+    def _depths(self, depth, m: int) -> torch.Tensor:
+        """(m,) int64 window depths on the device; a Python int is filled in
+        there rather than copied from the host (a copy would wait for the
+        queued work)."""
+        if isinstance(depth, int):
+            return torch.full((m,), depth, dtype=torch.int64, device=self.device)
+        return torch.as_tensor(depth, dtype=torch.int64, device=self.device).expand(m)
+
     # -- raw gather ---------------------------------------------------------
     def _gather(self, gidx: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         out = self.backend.gather(gidx, depth)
@@ -446,18 +492,127 @@ class CorpusStore:
         """
         gidx = torch.as_tensor(gidx, dtype=torch.int64, device=self.device)
         m = int(gidx.shape[0])
-        depth = torch.as_tensor(depth, dtype=torch.int64,
-                                device=self.device).expand(m)
         if m == 0:
             out = torch.zeros((0, self.k), dtype=torch.int32, device=self.device)
         else:
-            out = self._gather(gidx, depth)
-            self.rounds += -(-m // self.request_capacity)
-            self.requests += m
-            self.request_bytes += m * self.index_bytes
-            self.response_bytes += m * self.k * self.token_bytes
+            out = self._gather(gidx, self._depths(depth, m))
+            self._count_windows(m)
         self.peak_windows = max(self.peak_windows, m)
         return out
+
+    def fetch_window_pair(self, a: torch.Tensor, b: torch.Tensor,
+                          depth) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``fetch_windows(a, depth), fetch_windows(b, depth)`` from one
+        backend gather, counted as the two calls (the LCP's pair fetch)."""
+        m = int(a.shape[0])
+        if m == 0:
+            return self.fetch_windows(a, depth), self.fetch_windows(b, depth)
+        win = self._gather(torch.cat([a, b]), self._depths(depth, 2 * m))
+        for _ in range(2):
+            self._count_windows(m)
+        self.peak_windows = max(self.peak_windows, m)
+        return win[:m], win[m:]
+
+    def _count_windows(self, m: int) -> None:
+        """The counters of one JAX fetch of ``m`` windows: a round per
+        capacity chunk."""
+        self.rounds += -(-m // self.request_capacity)
+        self.requests += m
+        self.request_bytes += m * self.index_bytes
+        self.response_bytes += m * self.k * self.token_bytes
+
+    def gather_keys(self, gidx, depth) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The backend half of :meth:`fetch_keys`: windows at ``depth``
+        packed to key words, no counter or residency touched.
+
+        The worker-thread-safe fetch that the merge's refill prefetch
+        submits to the pipeline executor; the collector accounts it on the
+        main thread with :meth:`note_fetched`.  Returns ``(keys, ended)``:
+        (m, key_words) int32 and (m,) bool, on the store's device.
+        """
+        gidx = torch.as_tensor(gidx, dtype=torch.int64, device=self.device)
+        m = int(gidx.shape[0])
+        if m == 0:
+            return (torch.zeros((0, self.key_words), dtype=torch.int32,
+                                device=self.device),
+                    torch.zeros((0,), dtype=torch.bool, device=self.device))
+        win = self.backend.gather(gidx, self._depths(depth, m))
+        return pack_keys(win, self.cfg), (win == 0).any(dim=1)
+
+    def note_fetched(self, m: int) -> None:
+        """Main-thread accounting for ``m`` windows served by
+        :meth:`gather_keys`: the totals, rounds and peak of the JAX store's
+        capacity loop."""
+        m = int(m)
+        if m <= 0:
+            return
+        self._count_windows(m)
+        self.peak_windows = max(self.peak_windows, m)
+        self._note_resident()
+
+    def fetch_keys(self, gidx, depth) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched packed-key fetch: :meth:`gather_keys` + :meth:`note_fetched`.
+
+        ``keys`` are order-preserving words (:func:`pack_keys`); ``ended``
+        is True where the window holds a ``0``: the suffix ends inside it
+        and every deeper window is all-zero.
+        """
+        keys, ended = self.gather_keys(gidx, depth)
+        self.note_fetched(keys.shape[0])
+        return keys, ended
+
+    def rank_windows(self, keys: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+        """Output ranks of candidate rows under (key words..., global index).
+
+        The plain version of the ``merge_path_ranks`` kernel in the merge:
+        rank of a row = number of rows lexicographically smaller, ties
+        broken by the global index.  ``np.lexsort`` of the JAX store is
+        chained stable sorts here.  Returns (C,) int64.
+        """
+        order = lex_order([keys[:, w] for w in range(keys.shape[1])] + [gidx])
+        ranks = torch.empty_like(order)
+        ranks[order] = torch.arange(order.shape[0], device=order.device)
+        return ranks
+
+    def mget_window_host(self, gidx, depth, active, group):
+        """One capacity-bounded service round over active tie groups.
+
+        Serves whole groups, in order, until ``request_capacity`` requests
+        are placed; a leading group larger than the capacity is served alone
+        so rounds always progress.  Returns ``(windows, ok)``: unserved
+        slots have ``ok == False`` and zero windows, and the caller must not
+        advance a group with an unserved active member.  The name is the
+        JAX store's; the round runs on the store's device.
+        """
+        m = gidx.shape[0]
+        dev = self.device
+        win = torch.zeros((m, self.k), dtype=torch.int32, device=dev)
+        ok = torch.zeros((m,), dtype=torch.bool, device=dev)
+        act = torch.nonzero(active).squeeze(1)
+        self.rounds += 1
+        n_act = int(act.shape[0])
+        if n_act == 0:
+            return win, ok
+        ag = group[act]
+        new_grp = torch.ones((n_act,), dtype=torch.bool, device=dev)
+        new_grp[1:] = ag[1:] != ag[:-1]
+        grp_id = torch.cumsum(new_grp, 0) - 1
+        # request count through the end of each group
+        end_count = torch.zeros((n_act,), dtype=torch.int64, device=dev)
+        end_count.scatter_reduce_(
+            0, grp_id, torch.arange(1, n_act + 1, device=dev), "amax")
+        fits = end_count <= self.request_capacity
+        fits[0] = True  # oversized leading group: serve alone
+        served = act[fits[grp_id]]
+        n_served = int(served.shape[0])
+        win[served] = self._gather(gidx[served], depth[served])
+        ok[served] = True
+        self.requests += n_served
+        self.request_bytes += n_served * self.index_bytes
+        self.response_bytes += n_served * self.k * self.token_bytes
+        self.retries += n_act - n_served
+        self.peak_windows = max(self.peak_windows, n_served)
+        return win, ok
 
 
 def materialize_backend(backend: StoreBackend) -> np.ndarray:

@@ -26,26 +26,28 @@ KERNEL_REGISTRY: Dict[str, KernelEntry] = {
     "bucket_hist": KernelEntry("bucket_hist", False, roadmap="item 10"),
     "bitonic_sort": KernelEntry("bitonic_sort_tiles", False,
                                 roadmap="queue 2, K6"),
-    "merge_path": KernelEntry("merge_path_ranks", False, roadmap="item 9"),
+    "merge_path": KernelEntry("merge_path_ranks", True, "merge_path_ranks_ref"),
     "pattern_cmp": KernelEntry("pattern_cmp", True, "pattern_cmp_ref"),
 }
 
 
 def reset_launch_counts() -> None:
     """Set every ported kernel's ``launches`` count to 0."""
-    from repro_torch.kernels import pattern_cmp, prefix_pack, window_gather
+    from repro_torch.kernels import merge_path, pattern_cmp, prefix_pack, window_gather
 
     prefix_pack.prefix_pack.launches = 0
     window_gather.window_gather.launches = 0
     pattern_cmp.pattern_cmp.launches = 0
+    merge_path.merge_path_ranks.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each ported kernel since the last reset."""
-    from repro_torch.kernels import pattern_cmp, prefix_pack, window_gather
+    from repro_torch.kernels import merge_path, pattern_cmp, prefix_pack, window_gather
 
     return {
         "prefix_pack": prefix_pack.prefix_pack.launches,
         "window_gather": window_gather.window_gather.launches,
         "pattern_cmp": pattern_cmp.pattern_cmp.launches,
+        "merge_path": merge_path.merge_path_ranks.launches,
     }

@@ -18,7 +18,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("prefix_pack", "window_gather", "pattern_cmp")
+SOURCES = ("prefix_pack", "window_gather", "pattern_cmp", "merge_path")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

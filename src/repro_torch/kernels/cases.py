@@ -21,6 +21,8 @@ PACK_BLOCK = 256
 GATHER_SHAPES = [(8, 16, 5, 4), (32, 200, 64, 26), (3, 7, 17, 7)]  # (r, l, m, k)
 CMP_SHAPES = [(1, 4, 8), (100, 8, 32), (700, 6, 256)]  # (n, k, block)
 CMP_EDGE_K = (6, 40)  # window widths of the edge-row cases
+MERGE_SHAPES = [(5, 2, 8), (100, 4, 32), (700, 3, 256), (256, 6, 128)]  # (c, w, block)
+MERGE_EDGE = ("duplicates", "w1", "w64", "c1", "ragged", "negative", "int32-max")
 
 
 def pack_tokens(kw: dict, n: int) -> np.ndarray:
@@ -75,3 +77,48 @@ def cmp_edge_inputs(k: int):
     start[7], stop[7] = 0, k  # whole window
     pat[7, k - 1] = sfx[7, k - 1] + 1  # a mismatch in the last column
     return sfx, pat, start, stop
+
+
+def merge_inputs(c: int, w: int) -> np.ndarray:
+    """(c, w) int32 keys as ``tests/test_kernels.py`` draws them: heavy ties
+    in words 0..w-2, a permutation in the last word (strictly unique rows).
+    Seeded by ``c + w``."""
+    rng = np.random.default_rng(c + w)
+    keys = rng.integers(0, 4, size=(c, w)).astype(np.int32)
+    keys[:, -1] = rng.permutation(c).astype(np.int32)
+    return keys
+
+
+def merge_edge_inputs(name: str) -> np.ndarray:
+    """Key matrices beyond the kernel test's unique rows (any int32 input:
+    ranks count the rows strictly less, duplicates included):
+
+    - duplicates: many equal rows;
+    - w1 / w64: one word, and 64 words that tie deep;
+    - c1: a single row;
+    - ragged: C = 1000, not a multiple of any CTA size;
+    - negative: negative words mixed with positive ones;
+    - int32-max: words of ``int32`` max and min (the JAX kernel's padding
+      value appears as real data).
+    """
+    rng = np.random.default_rng(2000 + MERGE_EDGE.index(name))
+    if name == "duplicates":
+        base = rng.integers(0, 3, size=(40, 3)).astype(np.int32)
+        return np.concatenate([base, base, base[:17]])
+    if name == "w1":
+        return rng.integers(-5, 5, size=(300, 1)).astype(np.int32)
+    if name == "w64":
+        keys = np.ones((200, 64), np.int32)
+        keys[:, 40:] = rng.integers(0, 2, size=(200, 24))
+        return keys
+    if name == "c1":
+        return rng.integers(0, 9, size=(1, 5)).astype(np.int32)
+    if name == "ragged":
+        return rng.integers(0, 3, size=(1000, 4)).astype(np.int32)
+    if name == "negative":
+        return rng.integers(-3, 3, size=(500, 3)).astype(np.int32)
+    big = np.iinfo(np.int32)
+    keys = rng.choice(np.array([big.min, -1, 0, 1, big.max], np.int32),
+                      size=(333, 4))
+    return keys.astype(np.int32)
+

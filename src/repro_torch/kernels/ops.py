@@ -42,7 +42,11 @@ def bitonic_sort_tiles(key_hi, key_lo, val, tile: int = 1024):
 
 
 def merge_path_ranks(keys, block: int = 256):
-    _not_ported("merge_path")
+    if keys.device.type == "cpu":
+        return ref.merge_path_ranks_ref(keys)
+    from repro_torch.kernels.merge_path import merge_path_ranks as _merge_path_ranks
+
+    return _merge_path_ranks(keys, block=block)
 
 
 def pattern_cmp(sfx, pat, start, stop, block: int = 256):

@@ -123,3 +123,17 @@ def test_pattern_cmp_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pc_mod.pattern_cmp(x, x, x[0, :2], x[0, :2])
     assert pc_mod.pattern_cmp.launches == before
+
+
+def test_merge_path_wrapper_refuses_cpu_tensors():
+    """On a CPU tensor the dispatch op takes the plain version and launches
+    nothing; the kernel's own wrapper refuses it."""
+    from repro_torch.kernels import merge_path as mp_mod
+
+    keys = torch.tensor([[3, 1], [1, 2], [3, 1], [0, 9]], dtype=torch.int32)
+    before = mp_mod.merge_path_ranks.launches
+    assert ops.merge_path_ranks(keys).tolist() == [2, 1, 2, 0]
+    with pytest.raises(ValueError, match="CUDA"):
+        mp_mod.merge_path_ranks(keys)
+    assert mp_mod.merge_path_ranks.launches == before
+

@@ -12,12 +12,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import SAConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import merge_path as mp_mod
 from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, PACK_BLOCK, PACK_CFGS, PACK_IDS,
-    PACK_LENGTHS, cmp_edge_inputs, cmp_inputs, gather_inputs, pack_tokens)
+    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, MERGE_EDGE, MERGE_SHAPES, PACK_BLOCK,
+    PACK_CFGS, PACK_IDS, PACK_LENGTHS, cmp_edge_inputs, cmp_inputs, gather_inputs,
+    merge_edge_inputs, merge_inputs, pack_tokens)
 
 
 @pytest.fixture
@@ -97,3 +99,69 @@ def test_index_kernel_and_plain_engines_agree_on_card(cuda):
     np.testing.assert_array_equal(plain.ranges(pats), got)
     assert pc_mod.pattern_cmp.launches == launched
     assert plain.engine_stats() == idx.engine.engine_stats()
+
+
+def _merge_path_on_card(cuda, keys, block):
+    keys = torch.from_numpy(keys).to(cuda)
+    before = mp_mod.merge_path_ranks.launches
+    got = ops.merge_path_ranks(keys, block=block)
+    torch.cuda.synchronize()
+    assert mp_mod.merge_path_ranks.launches == before + 1
+    assert torch.equal(got, ref.merge_path_ranks_ref(keys))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,w,block", MERGE_SHAPES)
+def test_merge_path_kernel_on_card(cuda, c, w, block):
+    got = _merge_path_on_card(cuda, merge_inputs(c, w), block)
+    assert torch.equal(torch.sort(got).values,
+                       torch.arange(c, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MERGE_EDGE)
+def test_merge_path_kernel_edge_rows_on_card(cuda, name):
+    _merge_path_on_card(cuda, merge_edge_inputs(name), 256)
+
+
+def _out_of_core_on_card(cuda, corpus, oracle):
+    import numpy as np
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.core.superblock import build_suffix_array_superblock
+
+    cfg = SAConfig(vocab_size=4, chars_per_word=2, key_words=2, use_pallas=True)
+    sb = SuperblockConfig(num_superblocks=3, emit_lcp=True)
+    before = mp_mod.merge_path_ranks.launches
+    res = build_suffix_array_superblock(corpus, cfg=cfg, sb=sb, device=cuda)
+    assert mp_mod.merge_path_ranks.launches > before
+    np.testing.assert_array_equal(res.suffix_array, oracle)
+    single = build_suffix_array_superblock(
+        corpus, cfg=cfg, sb=SuperblockConfig(emit_lcp=True), device=cuda)
+    np.testing.assert_array_equal(res.lcp, single.lcp)
+    assert res.stats["superblocks"] == 3
+    assert res.stats["dropped"] == res.stats["unresolved"] == 0
+
+
+@pytest.mark.gpu
+def test_out_of_core_reads_build_on_card(cuda):
+    """Three superblocks of reads merged through the merge_path kernel: the
+    oracle's SA, and the in-core build's LCP."""
+    import numpy as np
+
+    from repro_torch.core.oracle import naive_sa_reads
+
+    reads = np.random.default_rng(5).integers(1, 5, size=(48, 12)).astype(np.int32)
+    _out_of_core_on_card(cuda, reads, naive_sa_reads(reads))
+
+
+@pytest.mark.gpu
+def test_out_of_core_text_build_on_card(cuda):
+    import numpy as np
+
+    from repro_torch.core.oracle import naive_sa_text
+
+    text = np.random.default_rng(2).integers(1, 5, size=(600,)).astype(np.int32)
+    _out_of_core_on_card(cuda, text, naive_sa_text(text))
+

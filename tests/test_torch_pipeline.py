@@ -1,6 +1,7 @@
 """The port's in-core build vs ``repro.core.pipeline.build_suffix_array`` and
 the oracle: the same suffix array, every Footprint field and every stats
-key, bit for bit, over reads/text corpora and the config switches."""
+key, bit for bit, over reads/text corpora and the config switches; and the
+routing of ``build_suffix_array_auto`` (single-pass, out-of-core, refused)."""
 import dataclasses
 
 import numpy as np
@@ -122,15 +123,49 @@ def test_auto_single_pass_equals_direct_build():
         assert res.stats == c.stats
 
 
+@pytest.mark.parametrize("sb", [
+    dict(num_superblocks=3),
+    dict(max_records_per_run=100),
+    dict(emit_lcp=True, num_superblocks=2),
+], ids=["superblocks", "budget", "lcp"])
+def test_auto_out_of_core_plans_match_repro(sb):
+    """Plans of more than one superblock build out of core, as in repro: the
+    same SA, LCP, Footprint and stats (wall times aside)."""
+    from repro.core.superblock import build_suffix_array_auto as ref_auto
+    from repro_torch.config import SuperblockConfig as PortSuperblockConfig
+
+    want = ref_auto(_reads(), cfg=RefConfig(**K4), sb=SuperblockConfig(**sb))
+    got = build_suffix_array_auto(_reads(), cfg=SAConfig(**K4),
+                                  sb=PortSuperblockConfig(**sb), device="cpu")
+    np.testing.assert_array_equal(got.suffix_array, want.suffix_array)
+    np.testing.assert_array_equal(got.suffix_array, naive_sa_reads(_reads()))
+    assert dataclasses.asdict(got.footprint) == dataclasses.asdict(want.footprint)
+    walls = ("t_stage_s", "t_build_s", "t_merge_s")
+    assert ({k: v for k, v in got.stats.items() if k not in walls}
+            == {k: v for k, v in want.stats.items() if k not in walls})
+    assert got.stats["superblocks"] > 1
+    if sb.get("emit_lcp"):
+        np.testing.assert_array_equal(got.lcp, want.lcp)
+
+
 @pytest.mark.parametrize("sb,item", [
-    (SuperblockConfig(num_superblocks=3), 9),
-    (SuperblockConfig(max_records_per_run=100), 9),
-    (SuperblockConfig(emit_lcp=True, num_superblocks=2), 9),
-    (SuperblockConfig(write_manifest=True), 8),
-], ids=["superblocks", "budget", "lcp", "manifest"])
+    (SuperblockConfig(write_manifest=True), "8"),
+    (SuperblockConfig(num_superblocks=2, merge_algorithm="kway"), "9b"),
+    (SuperblockConfig(num_superblocks=2, merge_algorithm="rerank"), "9b"),
+    (SuperblockConfig(num_superblocks=2, resume=True), "9b"),
+    (SuperblockConfig(num_superblocks=2, sanitize=True), "9b"),
+    (SuperblockConfig(num_superblocks=2, store_retries=2), "9b"),
+], ids=["manifest", "kway", "rerank", "resume", "sanitize", "store_retries"])
 def test_auto_refuses_out_of_core_plans(sb, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(NotImplementedError, match=f"item {item}$"):
         build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
+
+
+def test_auto_refuses_the_sanitizer_from_the_environment(monkeypatch):
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    with pytest.raises(NotImplementedError, match="item 9b$"):
+        build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), device="cpu",
+                                sb=SuperblockConfig(num_superblocks=2))
 
 
 @pytest.mark.parametrize("shape", [(10,), (1,), (7,), (100,), (9, 5), (40, 12)],
@@ -146,13 +181,14 @@ def test_num_superblocks_matches_plan(shape, knobs):
     shape (10,) and num_superblocks=6 the plan has 5 blocks, not 6."""
     import warnings
 
-    from repro.core.superblock import plan_superblocks
-    from repro_torch.core.superblock import num_superblocks
+    from repro.core.superblock import plan_superblocks as ref_plan
+    from repro_torch.config import SuperblockConfig as PortSuperblockConfig
+    from repro_torch.core.superblock import plan_superblocks
 
-    sb = SuperblockConfig(**knobs)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        want = plan_superblocks(shape, RefConfig(**K4), sb).num_superblocks
-    assert num_superblocks(shape, sb) == want
+        want = ref_plan(shape, RefConfig(**K4), SuperblockConfig(**knobs))
+        got = plan_superblocks(shape, SAConfig(**K4), PortSuperblockConfig(**knobs))
+    assert got.num_superblocks == want.num_superblocks
     if shape == (10,) and knobs == dict(num_superblocks=6):
-        assert want == 5
+        assert want.num_superblocks == 5

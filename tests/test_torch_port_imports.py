@@ -23,6 +23,7 @@ SLICE_MODULES = [
     "repro_torch.core.search",
     "repro_torch.core.pipeline",
     "repro_torch.core.superblock",
+    "repro_torch.core.pipeline_exec",
     "repro_torch.core.oracle",
     "repro_torch.data.corpus",
     "repro_torch.kernels",
@@ -33,6 +34,7 @@ SLICE_MODULES = [
     "repro_torch.kernels.prefix_pack",
     "repro_torch.kernels.window_gather",
     "repro_torch.kernels.pattern_cmp",
+    "repro_torch.kernels.merge_path",
     "repro_torch.launch.sa_build",
     "repro_torch.serve",
     "repro_torch.serve.sa_engine",

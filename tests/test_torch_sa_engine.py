@@ -219,7 +219,9 @@ def test_unported_paths_raise(call, item, tmp_path, monkeypatch):
             monkeypatch.setenv("REPRO_SANITIZE", "1")
             build()
         elif call == "superblocks":
-            build(sb=SuperblockConfig(num_superblocks=3))
+            # several superblocks build now (tests/test_torch_merge.py); the
+            # k-way merge over them is still item 9b
+            build(sb=SuperblockConfig(num_superblocks=3, merge_algorithm="kway"))
         else:
             build(sb=SuperblockConfig(**{call: 2 if call == "store_retries" else True}))
 
