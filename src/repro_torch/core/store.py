@@ -11,11 +11,16 @@ service at one shard, but it gathers and packs only the served rows, a
 bounded chunk at a time, so a round over 201 M suffixes never holds a window
 per capacity slot.
 
-Serving half (``StoreBackend``, ``InMemoryBackend``, ``CorpusStore``).  The
-JAX package keeps these on the host; in the port the backend's padded corpus
-is a tensor on its device, and ``CorpusStore`` takes and returns tensors
-there.  The query engine, the post-hoc LCP, the per-superblock builds and
-the out-of-core merge (``fetch_keys``, ``gather_keys`` + ``note_fetched``,
+Serving half (``StoreBackend``, ``InMemoryBackend``, ``ChunkedFileBackend``,
+``CorpusStore``).  The JAX package keeps these on the host; in the port the
+in-memory backend's padded corpus is a tensor on its device, and
+``CorpusStore`` takes and returns tensors there.  The chunked backend keeps
+the JAX package's design: the corpus on disk, an LRU cache of chunks on the
+host under ``cache_budget_bytes``; the store gathers from it one capacity
+chunk a call, as the JAX store does (so its cache counters are the JAX
+package's), and moves each batch of windows to its device in one copy.
+The query engine, the post-hoc LCP, the per-superblock builds and the
+out-of-core merge (``fetch_keys``, ``gather_keys`` + ``note_fetched``,
 ``rank_windows``, ``mget_window_host``, the merge frontier) go through it,
 with the JAX package's traffic and residency counters.
 """
@@ -23,7 +28,8 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from collections import OrderedDict
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +42,9 @@ from repro_torch.device import resolve_device
 
 # Most requests whose windows are gathered at once by serve_windows.
 FETCH_CHUNK = 1 << 22
+# Default resident-byte budget of the chunked store backend (LRU chunk cache
+# and merge frontier share it; see superblock._resolve_backend).
+DEFAULT_CACHE_BUDGET = 64 << 20
 
 
 def index_request_bytes(num_items: int, stride_bits: int) -> int:
@@ -293,6 +302,10 @@ class StoreBackend:
     """
 
     device: torch.device
+    # True for a backend whose counters and residency depend on its call
+    # pattern: the store then gathers from it one capacity chunk a call, on
+    # the host (``gather_host``), as the JAX store calls every backend
+    per_round = False
 
     def _init_geometry(self, text_mode: bool, items: int, row_len: int,
                        cfg: SAConfig) -> None:
@@ -380,6 +393,126 @@ class InMemoryBackend(StoreBackend):
         return self._corpus[lo:hi]
 
 
+class ChunkedFileBackend(StoreBackend):
+    """Disk-resident backend: chunked corpus file + budgeted LRU chunk cache
+    (``repro.core.store.ChunkedFileBackend``).
+
+    The corpus lives in the ``repro_torch.data.chunk_store`` format and only
+    cached chunks are host-resident: ``resident_bytes`` is the exact sum of
+    cached chunk array bytes and never exceeds ``cache_budget_bytes``
+    (eviction runs *before* a miss loads).  Text-mode chunks carry a K-token
+    halo so windows straddling a chunk edge are served from one chunk;
+    reads-mode rows are atomic within a chunk.  ``read_items`` streams from
+    the file without touching the cache.  ``gather_host`` is the JAX
+    backend's numpy gather; ``gather`` wraps it for tensors and returns the
+    windows on ``device`` (the card by default).
+    """
+
+    per_round = True
+
+    def __init__(self, path: str, cfg: SAConfig, cache_budget_bytes: int = 0,
+                 verify: bool = True, device=None):
+        from repro_torch.data.chunk_store import ChunkedCorpusReader
+
+        self.device = resolve_device(device)
+        # every chunk the LRU caches is crc-checked on load (v2 files)
+        self._reader = ChunkedCorpusReader(path, verify=verify)
+        meta = self._reader.meta
+        self._init_geometry(meta.text_mode, meta.items, meta.row_len, cfg)
+        self.path = path
+        self.chunk_items = meta.chunk_items
+        self.num_chunks = meta.num_chunks
+        # a text chunk resident in cache carries its K-token halo
+        halo_bytes = self.k * 4 if meta.text_mode else 0
+        self._full_chunk_bytes = meta.chunk_bytes + halo_bytes
+        if cache_budget_bytes <= 0:
+            cache_budget_bytes = DEFAULT_CACHE_BUDGET
+        if cache_budget_bytes < self._full_chunk_bytes:
+            self._reader.close()  # constructor raises: don't leak the fd
+            raise ValueError(
+                f"chunk cache budget of {cache_budget_bytes} B cannot hold "
+                f"one chunk ({self._full_chunk_bytes} B). The streaming "
+                "build gives the LRU half of SuperblockConfig."
+                "cache_budget_bytes — lower chunk_records (or rewrite the "
+                "corpus file with smaller chunks), or raise the budget"
+            )
+        self.cache_budget_bytes = int(cache_budget_bytes)
+        self._cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._resident = 0
+        self.evictions = 0
+
+    @property
+    def resident_bytes(self) -> int:
+        return self._resident
+
+    def close(self) -> None:
+        self._cache.clear()
+        self._resident = 0
+        self._reader.close()
+
+    def _chunk(self, ci: int) -> np.ndarray:
+        chunk = self._cache.get(ci)
+        if chunk is not None:
+            self._cache.move_to_end(ci)
+            self.cache_hits += 1
+            return chunk
+        self.cache_misses += 1
+        incoming = self._full_chunk_bytes  # upper bound (tail chunks shorter)
+        while self._cache and self._resident + incoming > self.cache_budget_bytes:
+            _, old = self._cache.popitem(last=False)
+            self._resident -= old.nbytes
+            self.evictions += 1
+        chunk = self._reader.read_chunk(ci, halo=self.k if self.text_mode else 0)
+        self._cache[ci] = chunk
+        self._resident += chunk.nbytes
+        return chunk
+
+    def gather_host(self, gidx: np.ndarray, depth) -> np.ndarray:
+        """(m,) int64 global suffix ids and window depths (host arrays) ->
+        (m, K) int32 windows, one cache access per chunk touched."""
+        gidx = np.asarray(gidx, np.int64)
+        m = gidx.shape[0]
+        depth = np.broadcast_to(np.asarray(depth, np.int64), (m,))
+        out = np.zeros((m, self.k), np.int32)
+        if self.text_mode:
+            pos = np.minimum(gidx + depth * self.k, self.n)
+            ci = np.minimum(pos // self.chunk_items, self.num_chunks - 1)
+        else:
+            row = (gidx >> self.stride_bits).astype(np.int64)
+            off = (gidx & ((1 << self.stride_bits) - 1)).astype(np.int64)
+            off = np.minimum(off + depth * self.k, self.max_len - 1)
+            ci = row // self.chunk_items
+        for c in np.unique(ci):
+            sel = np.flatnonzero(ci == c)
+            chunk = self._chunk(int(c))
+            base = int(c) * self.chunk_items
+            if self.text_mode:
+                local = pos[sel] - base  # halo covers the straddle/tail
+                cols = local[:, None] + np.arange(self.k)[None, :]
+                out[sel] = chunk[cols]
+            else:
+                cols = off[sel][:, None] + np.arange(self.k)[None, :]
+                valid = cols < self.row_len  # zero-pad past the row end
+                cc = np.minimum(cols, self.row_len - 1)
+                out[sel] = np.where(valid, chunk[row[sel] - base][
+                    np.arange(sel.size)[:, None], cc], 0)
+        return out
+
+    def gather(self, gidx: torch.Tensor, depth) -> torch.Tensor:
+        win = self.gather_host(_host(gidx), _host(depth))
+        return torch.from_numpy(win).to(self.device)
+
+    def read_items(self, lo: int, hi: int) -> np.ndarray:
+        return self._reader.read_items(lo, hi)
+
+
+def _host(x) -> np.ndarray:
+    """A tensor, array or int as a host int64 array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.int64).numpy()
+    return np.asarray(x, np.int64)
+
+
 # ---------------------------------------------------------------------------
 # The serving store
 # ---------------------------------------------------------------------------
@@ -393,9 +526,11 @@ class CorpusStore:
     requests per service round, ``index_bytes`` per request (derived from
     the address space), ``K * token_bytes`` per raw-window response, and
     ``peak_resident_bytes`` of the backend plus the merge frontier that the
-    out-of-core merge registers with :meth:`add_frontier`.  A batch is
-    gathered at once where the JAX store loops over capacity chunks; the
-    counters grow exactly as that loop grows them.  ``WindowCursor`` (the
+    out-of-core merge registers with :meth:`add_frontier`.  From an
+    in-memory backend a batch is gathered at once where the JAX store loops
+    over capacity chunks, and the counters grow exactly as that loop grows
+    them; a ``per_round`` backend (the chunked one) is called one capacity
+    chunk at a time, as the JAX store calls it.  ``WindowCursor`` (the
     k-way merge's cache) is ROADMAP.md item 9b.
     """
 
@@ -482,6 +617,17 @@ class CorpusStore:
         self._note_resident()
         return out
 
+    def _host_rounds(self, gidx, depth):
+        """The JAX store's capacity loop over a ``per_round`` backend:
+        yields ``(lo, hi, windows)`` of one host gather per
+        ``request_capacity`` requests."""
+        g = _host(gidx)
+        m = g.shape[0]
+        d = np.broadcast_to(_host(depth), (m,))
+        for lo in range(0, m, self.request_capacity):
+            hi = min(lo + self.request_capacity, m)
+            yield lo, hi, self.backend.gather_host(g[lo:hi], d[lo:hi])
+
     # -- batched fetch ------------------------------------------------------
     def fetch_windows(self, gidx, depth) -> torch.Tensor:
         """(m, K) int32 windows of suffixes ``gidx`` at window ``depth``.
@@ -494,6 +640,13 @@ class CorpusStore:
         m = int(gidx.shape[0])
         if m == 0:
             out = torch.zeros((0, self.k), dtype=torch.int32, device=self.device)
+        elif self.backend.per_round:
+            host = np.zeros((m, self.k), np.int32)
+            for lo, hi, win in self._host_rounds(gidx, depth):
+                host[lo:hi] = win
+                self._note_resident()  # after every round, as the JAX store
+            out = torch.from_numpy(host).to(self.device)  # one copy
+            self._count_windows(m)
         else:
             out = self._gather(gidx, self._depths(depth, m))
             self._count_windows(m)
@@ -505,7 +658,7 @@ class CorpusStore:
         """``fetch_windows(a, depth), fetch_windows(b, depth)`` from one
         backend gather, counted as the two calls (the LCP's pair fetch)."""
         m = int(a.shape[0])
-        if m == 0:
+        if m == 0 or self.backend.per_round:
             return self.fetch_windows(a, depth), self.fetch_windows(b, depth)
         win = self._gather(torch.cat([a, b]), self._depths(depth, 2 * m))
         for _ in range(2):
@@ -536,7 +689,15 @@ class CorpusStore:
             return (torch.zeros((0, self.key_words), dtype=torch.int32,
                                 device=self.device),
                     torch.zeros((0,), dtype=torch.bool, device=self.device))
-        win = self.backend.gather(gidx, self._depths(depth, m))
+        if self.backend.per_round:
+            # the worker-thread path: no residency noted here (SAL010);
+            # note_fetched accounts it on the main thread
+            host = np.zeros((m, self.k), np.int32)
+            for lo, hi, w in self._host_rounds(gidx, depth):
+                host[lo:hi] = w
+            win = torch.from_numpy(host).to(self.device)  # one copy
+        else:
+            win = self.backend.gather(gidx, self._depths(depth, m))
         return pack_keys(win, self.cfg), (win == 0).any(dim=1)
 
     def note_fetched(self, m: int) -> None:
@@ -615,7 +776,44 @@ class CorpusStore:
         return win, ok
 
 
+# ---------------------------------------------------------------------------
+# Store-layer backend access helpers (the only sanctioned raw-read paths
+# outside a CorpusStore; everything else is a salint SAL002 violation)
+# ---------------------------------------------------------------------------
+
+
+def stream_backend_items(backend: StoreBackend,
+                         batch_items: int = 1 << 18) -> Iterator[np.ndarray]:
+    """Yield the backend's items in order as host batches of at most
+    ``batch_items`` items (``repro.core.store.stream_backend_items``), so a
+    serialization never holds a corpus-sized host array."""
+    batch_items = max(1, int(batch_items))
+    for lo in range(0, backend.n, batch_items):
+        yield backend.read_items(lo, min(lo + batch_items, backend.n))
+
+
+def backend_fingerprint(backend: StoreBackend,
+                        sample_items: int = 1024) -> dict:
+    """Geometry + head-sample crc of a backend's corpus
+    (``repro.core.store.backend_fingerprint``): a fingerprint, not an
+    integrity check."""
+    from repro_torch.core.integrity import crc32_array
+
+    head = np.ascontiguousarray(
+        backend.read_items(0, min(backend.n, int(sample_items))), np.int32)
+    return {
+        "items": int(backend.n),
+        "row_len": int(backend.row_len),
+        "text_mode": bool(backend.text_mode),
+        "head_crc": crc32_array(head),
+    }
+
+
 def materialize_backend(backend: StoreBackend) -> np.ndarray:
     """Whole-corpus host array of a backend (``repro.core.store``'s escape
-    hatch for paths that need the full corpus, such as an in-core build)."""
-    return backend.read_items(0, backend.n)
+    hatch for paths that need the full corpus, such as an in-core build or
+    the device refiner); bounded-residency paths stream instead."""
+    if backend.n == 0:
+        shape = (0,) if backend.text_mode else (0, backend.row_len)
+        return np.zeros(shape, np.int32)
+    return np.concatenate(list(stream_backend_items(backend)), axis=0)

@@ -23,18 +23,31 @@ holds every record, and otherwise the paper's scale path in three phases.
    under ``emit_lcp``.  The tile state lives on the store's device; a round
    reads one scalar per escalation level and one for the horizon.
 
+Streaming (``store_backend="chunked"``, a corpus file path, or any backend
+but the in-memory one): the corpus stays on disk behind the chunked
+backend's LRU cache (half of ``cache_budget_bytes``), each block stages
+only its own items, block SAs spill to disk and the merge reads its tiles
+from those spills, with the tile width sized by the read-ahead share of
+the budget, so ``peak_resident_bytes`` (cache plus frontier) stays under
+the budget.  ``spill_dir`` receives ``suffix_array.npy``/``lcp.npy`` as
+memmaps, and ``write_manifest`` finalizes it as an index directory
+(``repro_torch.core.index_io``).
+
 The output equals the JAX package's: the suffix array, the LCP array, every
-``Footprint`` field and every ``stats`` key but the wall times ``t_*_s``.
-The k-way and re-rank merges, resume, the sanitizer and store retries raise
-``NotImplementedError`` naming ROADMAP.md item 9b; index manifests, spill
-directories, the chunked store backend and corpus files name item 8.
+``Footprint`` field and every ``stats`` key but the wall times ``t_*_s``,
+and the files of a ``spill_dir`` byte for byte.  The k-way and re-rank
+merges, resume, the sanitizer and store retries raise
+``NotImplementedError`` naming ROADMAP.md item 9b.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import os
+import shutil
+import tempfile
 import time
+import uuid
 import warnings
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
@@ -44,22 +57,25 @@ import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
 from repro_torch.core.distributed import lex_order, run_starts
+from repro_torch.core.integrity import publish_file
 from repro_torch.core.lcp import lcp_from_sa, pairwise_lcp
 from repro_torch.core.pipeline import DeviceRefiner, _tied, build_suffix_array
 from repro_torch.core.pipeline_exec import PipelineExecutor, pipeline_point
 from repro_torch.core.store import (
+    DEFAULT_CACHE_BUDGET,
+    ChunkedFileBackend,
     CorpusStore,
     InMemoryBackend,
     StoreBackend,
     materialize_backend,
 )
+from repro_torch.device import resolve_device
 from repro_torch.core.types import WORD_BITS, WORD_MOD, Footprint, SAResult
 
 # LCP pairs compared at once on the card (the default of ``lcp_from_sa`` on
 # the CPU); the single-block build's LCP store is discarded, so the batch
 # changes no reported number
 CUDA_LCP_BATCH = 1 << 22
-_PERSISTENCE = "is ROADMAP.md item 8"
 _ITEM_9B = "is ROADMAP.md item 9b"
 
 
@@ -132,23 +148,160 @@ def plan_superblocks(corpus_shape, cfg: SAConfig, sb: SuperblockConfig) -> Super
 
 def corpus_shape_of(corpus) -> Tuple[int, ...]:
     """Corpus shape without materializing it: an array's own shape, a
-    :class:`StoreBackend`'s geometry.  Corpus files are item 8."""
+    :class:`StoreBackend`'s geometry, a chunked corpus file's header."""
     if isinstance(corpus, StoreBackend):
         return corpus.shape
     if isinstance(corpus, (str, os.PathLike)):
-        raise NotImplementedError(f"chunked corpus files {_PERSISTENCE}")
+        from repro_torch.data.chunk_store import read_chunked_corpus_meta
+
+        meta = read_chunked_corpus_meta(os.fspath(corpus))
+        return (meta.items,) if meta.text_mode else (meta.items, meta.row_len)
     return np.shape(corpus)
 
 
 def _refuse_unported(sb: SuperblockConfig) -> None:
-    if sb.write_manifest or sb.spill_dir is not None or sb.store_backend != "memory":
-        raise NotImplementedError(
-            "index manifests, spill directories and the chunked store "
-            f"backend {_PERSISTENCE}")
     if (sb.resume or sb.sanitize or sb.store_retries > 0
             or os.environ.get("REPRO_SANITIZE", "") not in ("", "0")):
         raise NotImplementedError(
             f"resume, the sanitizer and store retries {_ITEM_9B}")
+
+
+def _to_device(run, device) -> torch.Tensor:
+    """A run (a tensor, a host array, or a spilled run's memmap, of which
+    this reads a copy) as an int64 tensor on ``device``."""
+    if isinstance(run, torch.Tensor):
+        return run.to(device)
+    if type(run) is np.ndarray:  # not a memmap: no private copy needed
+        return torch.from_numpy(np.ascontiguousarray(run, np.int64)).to(device)
+    return torch.from_numpy(np.array(run, dtype=np.int64)).to(device)
+
+
+class _Scratch:
+    """Private scratch directory for one streaming build (serialized corpus,
+    per-block SA spills); removed when the build finishes
+    (``repro.core.superblock._Scratch``).
+
+    With an ``executor`` attached (``SuperblockConfig.pipeline_depth >= 1``)
+    the spill *write* runs on the background worker: the memmap is created
+    at once (so the caller keeps its disk-backed handle) but its pages are
+    filled and flushed behind the next block's build.  Callers must
+    :meth:`drain_spills` before the first read of any spilled run.
+    """
+
+    def __init__(self, parent: Optional[str],
+                 executor: Optional[PipelineExecutor] = None):
+        self.dir = tempfile.mkdtemp(prefix="sa_superblock_", dir=parent)
+        self._n = 0
+        self._tag = uuid.uuid4().hex[:8]
+        self.spilled_runs = 0
+        self.spilled_bytes = 0
+        self.executor = executor
+        self._pending: List = []
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.dir, name)
+
+    @staticmethod
+    def _fill(out: np.ndarray, arr: np.ndarray) -> None:
+        out[:] = arr
+        out.flush()
+
+    def spill_run(self, arr) -> np.ndarray:
+        """Spill a sorted run (a host array, or a tensor copied to the host)
+        to disk and hand back its memmap: only the pages the merge touches
+        come resident."""
+        p = self.path(f"run_{self._tag}_{self._n}.npy")
+        self._n += 1
+        if isinstance(arr, torch.Tensor):
+            arr = arr.cpu().numpy()
+        arr = np.ascontiguousarray(arr)
+        self.spilled_runs += 1
+        self.spilled_bytes += int(arr.size) * arr.dtype.itemsize
+        if self.executor is not None:
+            out = np.lib.format.open_memmap(
+                p, mode="w+", dtype=arr.dtype, shape=arr.shape)
+            self._pending.append(self.executor.submit(self._fill, out, arr))
+            return out
+        np.save(p, arr)
+        return np.load(p, mmap_mode="r")
+
+    def drain_spills(self) -> None:
+        """Wait for in-flight spill writes (re-raises a worker failure)."""
+        pipeline_point("spill:drain")
+        pending, self._pending = self._pending, []
+        for task in pending:
+            task.result()
+
+    def cleanup(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _resolve_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
+                     scratch: Optional[_Scratch], device) -> StoreBackend:
+    """The store backend the whole construction streams through
+    (``repro.core.superblock._resolve_backend``).
+
+    * array + ``store_backend="memory"`` -> :class:`InMemoryBackend` on
+      ``device``;
+    * array + ``store_backend="chunked"`` -> the array is serialized once
+      to the chunked format in ``scratch`` (in ``spill_dir`` itself when
+      ``write_manifest`` is set: the index must outlive the scratch) and
+      served from a :class:`ChunkedFileBackend`;
+    * path -> :class:`ChunkedFileBackend` over the existing file;
+    * a :class:`StoreBackend` passes through.
+
+    The chunked backend's LRU gets **half** of ``cache_budget_bytes``; the
+    other half covers the merge frontier, so ``peak_resident_bytes``
+    (cache + frontier) stays under the budget as a whole.
+    """
+    if isinstance(corpus, StoreBackend):
+        return corpus
+    budget = (sb.cache_budget_bytes if sb.cache_budget_bytes > 0
+              else DEFAULT_CACHE_BUDGET)
+    if isinstance(corpus, (str, os.PathLike)):
+        return ChunkedFileBackend(os.fspath(corpus), cfg,
+                                  cache_budget_bytes=budget // 2, device=device)
+    if sb.store_backend == "memory":
+        return InMemoryBackend(np.asarray(corpus, np.int32), cfg, device=device)
+    if sb.store_backend != "chunked":
+        raise ValueError(f"unknown store_backend: {sb.store_backend!r}")
+    from repro_torch.data.chunk_store import chunk_items_for_budget, write_chunked_corpus
+
+    corpus = np.asarray(corpus, np.int32)
+    items = corpus.shape[0]
+    row_len = 1 if corpus.ndim == 1 else corpus.shape[1]
+    chunk_items = sb.chunk_records
+    if chunk_items <= 0:
+        # several chunks must fit the LRU half-budget or caching degenerates
+        chunk_items = chunk_items_for_budget(items, row_len, budget)
+    assert scratch is not None
+    if sb.write_manifest and sb.spill_dir:
+        path = os.path.join(sb.spill_dir, "corpus.sachunk")
+    else:
+        path = scratch.path("corpus.sachunk")
+    write_chunked_corpus(corpus, path, chunk_items=chunk_items)
+    return ChunkedFileBackend(path, cfg, cache_budget_bytes=budget // 2,
+                              device=device)
+
+
+@dataclass
+class _MergeFrontier:
+    """Streaming merge policy (``repro.core.superblock._MergeFrontier``,
+    its merge-path use): ``readahead_bytes`` is split across the merged
+    runs' tile buffers.  The k-way merge's cursor policy is ROADMAP.md
+    item 9b."""
+
+    readahead_bytes: int
+    window_bytes: int
+
+    def per_run_keys(self, num_runs: int, key_words: int,
+                     buffers: int = 2) -> int:
+        """Merge-path tile width under the read-ahead budget: tile buffers
+        hold packed key rows, two levels of key words plus the flag lanes
+        an element; the pipelined merge passes ``buffers=3`` for its
+        pending refill rows."""
+        est = buffers * (key_words + 1) * 4
+        return max(2, self.readahead_bytes // (max(1, num_runs) * est))
 
 
 # ---------------------------------------------------------------------------
@@ -293,54 +446,84 @@ def _sorted_runs(
 
 
 class _OutputSink:
-    """Final-order SA emitter, in memory on the store's device.
+    """Final-order SA emitter (``repro.core.superblock._OutputSink``).
 
-    Pieces arrive in true suffix order and are written sequentially; with an
-    executor the writes run on its worker, in submission order.  With
-    ``pair_lcp`` (``SuperblockConfig.emit_lcp``) the sink also emits the
-    LCP array: ``lcp[i]`` is one compare between consecutive emitted
-    suffixes, across piece seams too, in batches of ``_LCP_BATCH`` pairs,
-    as the JAX sink batches them (the batching decides the store's round
-    count).
+    Pieces arrive in true suffix order and are written sequentially: into a
+    tensor on the store's device, or, with ``memmap_path``
+    (``SuperblockConfig.spill_dir``), into a disk-backed ``.npy`` memmap
+    written under a unique temporary name and published when complete (the
+    returned suffix array is then that memmap).  With an executor the writes
+    run on its worker, in submission order.  With ``pair_lcp``
+    (``SuperblockConfig.emit_lcp``) the sink also emits the LCP array, to
+    ``lcp_path`` when given: ``lcp[i]`` is one compare between consecutive
+    emitted suffixes, across piece seams too, in batches of ``_LCP_BATCH``
+    pairs, as the JAX sink batches them (the batching decides the store's
+    round count).  A piece is a tensor or a host array (a spilled run).
     """
 
     _LCP_BATCH = 1 << 16
 
     def __init__(self, total: int, device, pair_lcp=None,
-                 executor: Optional[PipelineExecutor] = None):
+                 executor: Optional[PipelineExecutor] = None,
+                 memmap_path: Optional[str] = None,
+                 lcp_path: Optional[str] = None):
         self.total = int(total)
+        self.device = device
         self.written = 0
         self.pieces = 0
         self.max_piece = 0
         self._exec = executor
         self._tasks: List = []
-        self._out = torch.empty(self.total, dtype=torch.int64, device=device)
+        self._finalized = False
+        self.path = memmap_path
+        self._out = self._open(memmap_path, "_tmp")
         self._pair_lcp = pair_lcp
+        self.lcp_path = lcp_path if pair_lcp is not None else None
         self._last: Optional[torch.Tensor] = None  # last emitted gidx, (1,)
-        self._lcp = (torch.empty(self.total, dtype=torch.int64, device=device)
+        self._lcp = (self._open(self.lcp_path, "_lcp_tmp")
                      if pair_lcp is not None else None)
         self.lcp: Optional[np.ndarray] = None  # host LCP, set by result()
 
-    def append(self, piece: torch.Tensor) -> None:
+    def _open(self, path: Optional[str], tmp_attr: str):
+        """An int64 output of ``total`` entries: a device tensor, or a
+        memmap under a unique temporary name beside ``path`` (reusing a
+        ``spill_dir`` must never truncate a previous build's mapping)."""
+        if path is None:
+            return torch.empty(self.total, dtype=torch.int64, device=self.device)
+        tmp = f"{path}.{os.getpid()}.{uuid.uuid4().hex}.tmp"
+        setattr(self, tmp_attr, tmp)
+        return np.lib.format.open_memmap(tmp, mode="w+", dtype=np.int64,
+                                         shape=(self.total,))
+
+    def _put(self, out, lo: int, vals) -> None:
+        """``out[lo:lo+len(vals)] = vals`` across the host/device split."""
+        hi = lo + vals.shape[0]
+        if isinstance(out, torch.Tensor):
+            out[lo:hi] = _to_device(vals, out.device)
+        else:
+            out[lo:hi] = vals.cpu().numpy() if isinstance(vals, torch.Tensor) else vals
+
+    def append(self, piece) -> None:
         m = int(piece.shape[0])
         if m == 0:
             return
         pipeline_point("sink:append")
         if self._pair_lcp is not None:
             self._append_lcp(piece)
+        if self.path is not None and isinstance(piece, torch.Tensor):
+            piece = piece.cpu().numpy()  # read back here, written by the worker
         if self._exec is not None:
-            self._tasks.append(self._exec.submit(self._write, self.written, piece))
+            self._tasks.append(self._exec.submit(self._put, self._out,
+                                                 self.written, piece))
         else:
-            self._write(self.written, piece)
+            self._put(self._out, self.written, piece)
         self.written += m
         self.pieces += 1
         self.max_piece = max(self.max_piece, m)
 
-    def _write(self, lo: int, piece: torch.Tensor) -> None:
-        self._out[lo : lo + piece.shape[0]] = piece
-
-    def _append_lcp(self, p: torch.Tensor) -> None:
+    def _append_lcp(self, p) -> None:
         m = int(p.shape[0])
+        dev = self.device
         base = self.written
         start = 0
         if self._last is None:
@@ -348,15 +531,33 @@ class _OutputSink:
             start = 1
         for lo in range(start, m, self._LCP_BATCH):
             hi = min(lo + self._LCP_BATCH, m)
-            left = p[lo - 1 : hi - 1] if lo > 0 else torch.cat([self._last, p[: hi - 1]])
-            self._lcp[base + lo : base + hi] = self._pair_lcp(left, p[lo:hi])
-        self._last = p[-1:]
+            if lo > 0:
+                seg = _to_device(p[lo - 1 : hi], dev)
+                left, right = seg[:-1], seg[1:]
+            else:
+                right = _to_device(p[:hi], dev)
+                left = torch.cat([self._last, right[:-1]])
+            self._put(self._lcp, base + lo, self._pair_lcp(left, right))
+        self._last = _to_device(p[m - 1 : m], dev)
+
+    def _publish(self, attr: str, tmp: str, path: str) -> np.ndarray:
+        """Flush the memmap held in ``attr``, drop the write mapping, move
+        its file to ``path`` and map the published file."""
+        getattr(self, attr).flush()
+        setattr(self, attr, None)
+        publish_file(tmp, path)
+        return np.load(path, mmap_mode="r+")
 
     def result(self) -> np.ndarray:
         assert self.written == self.total, (self.written, self.total)
         self._drain()
-        if self._lcp is not None:
+        self._finalized = True
+        if self.lcp_path is not None:
+            self.lcp = self._publish("_lcp", self._lcp_tmp, self.lcp_path)
+        elif self._lcp is not None:
             self.lcp = self._lcp.cpu().numpy()
+        if self.path is not None:
+            return self._publish("_out", self._tmp, self.path)
         return self._out.cpu().numpy()
 
     def _drain(self) -> None:
@@ -366,11 +567,22 @@ class _OutputSink:
             t.result()
 
     def abort(self) -> None:
-        """Failure path: wait out in-flight writes, errors included."""
+        """Failure path: wait out in-flight writes, drop the write mappings
+        and unlink the temporary files.  No-op after :meth:`result`."""
+        if self._finalized:
+            return
         tasks, self._tasks = self._tasks, []
         for t in tasks:
             with contextlib.suppress(BaseException):
                 t.result()
+        if self.path is not None:
+            self._out = None
+            with contextlib.suppress(OSError):
+                os.unlink(self._tmp)
+        if self.lcp_path is not None:
+            self._lcp = None
+            with contextlib.suppress(OSError):
+                os.unlink(self._lcp_tmp)
 
 
 class _RunTile:
@@ -383,15 +595,17 @@ class _RunTile:
     flags, plus the depth-0 keys prefetched for the next refill.  Columns
     past a member's fetched level are zeros.  ``nbytes`` counts the buffers
     as the JAX tile's numpy arrays count them (int32 words and levels,
-    one-byte flags).
+    one-byte flags).  The run is a tensor, or the memmap of a spilled run
+    (streaming), of which only the members a round reads are copied to the
+    device.
     """
 
-    __slots__ = ("run", "pos", "count", "width", "words", "levels", "ended",
-                 "kw", "pend_keys", "pend_ended")
+    __slots__ = ("run", "dev", "pos", "count", "width", "words", "levels",
+                 "ended", "kw", "pend_keys", "pend_ended")
 
-    def __init__(self, run: torch.Tensor, kw: int):
-        dev = run.device
+    def __init__(self, run, kw: int, dev: torch.device):
         self.run = run
+        self.dev = dev
         self.kw = kw
         self.pos = 0  # consumed members
         self.count = 0  # buffered members
@@ -415,23 +629,26 @@ class _RunTile:
     def buffered(self) -> int:
         return self.count
 
+    def _members(self, lo: int, hi: int) -> torch.Tensor:
+        return _to_device(self.run[lo:hi], self.dev)
+
     @property
     def gidx(self) -> torch.Tensor:
-        return self.run[self.pos : self.pos + self.count]
+        return self._members(self.pos, self.pos + self.count)
 
     def need(self, tile: int) -> torch.Tensor:
         """Run members to fetch so the buffer covers min(tile, remaining)
         (members already in the pending buffer excluded)."""
         want = min(tile, self.remaining) - self.count - self.pending
         lo = self.pos + self.count + self.pending
-        return self.run[lo : lo + max(want, 0)]
+        return self._members(lo, lo + max(want, 0))
 
     def prefetch_need(self, tile: int) -> torch.Tensor:
         """Run members whose depth-0 keys the next refill could ask for:
         the next window starts at the invariant ``pos + count``."""
         cap = min(tile, self.remaining - self.count) - self.pending
         lo = self.pos + self.count + self.pending
-        return self.run[lo : lo + max(cap, 0)]
+        return self._members(lo, lo + max(cap, 0))
 
     def admit_pending(self, keys: torch.Tensor, ended: torch.Tensor) -> None:
         if keys.shape[0] == 0:
@@ -496,16 +713,18 @@ def _widen(words: torch.Tensor, width: int) -> torch.Tensor:
 
 def _merge_path_runs(
     store: CorpusStore,
-    runs: List[torch.Tensor],
+    runs: List,
     sink: _OutputSink,
     cap: int,
     merge_tile: int,
     use_pallas: bool,
     refiner: Optional[DeviceRefiner] = None,
+    frontier: Optional[_MergeFrontier] = None,
     executor: Optional[PipelineExecutor] = None,
 ) -> int:
     """Merge exactly-sorted runs by merge-path tiles; emit in final order
-    (``repro.core.superblock._merge_path_runs``, in-memory store).
+    (``repro.core.superblock._merge_path_runs``).  A streaming build's
+    runs are spilled memmaps and its ``frontier`` sizes the tile.
 
     Per round: one batched depth-0 fetch refills every run's tile; tie
     groups deeper than the fetched words escalate together, one batched
@@ -527,11 +746,17 @@ def _merge_path_runs(
     if len(runs) == 1:
         sink.append(runs[0])
         return int(runs[0].shape[0])
-    dev = runs[0].device
+    dev = store.device
     kw = store.key_words
-    tile = merge_tile if merge_tile > 0 else 4096
+    if merge_tile > 0:  # explicit knob wins, streaming or not
+        tile = merge_tile
+    elif frontier is not None:
+        tile = frontier.per_run_keys(
+            len(runs), kw, buffers=3 if executor is not None else 2)
+    else:
+        tile = 4096
     tile = max(2, min(tile, cap // max(1, len(runs))))
-    tiles = [_RunTile(r, kw) for r in runs]
+    tiles = [_RunTile(r, kw, dev) for r in runs]
     registered = 0  # frontier bytes currently registered with the store
     peak_candidates = 0
     max_levels = store.max_window_depth
@@ -677,20 +902,23 @@ def _merge_path_runs(
 
 def _split_boundary_risk(
     plan: SuperblockPlan,
-    local_sas: List[torch.Tensor],
+    local_sas: List,
     block_stats: List[dict],
     k: int,
-) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    device=None,
+) -> Tuple[List, torch.Tensor]:
     """Text mode: split each block's run into its exactly-sorted part and
-    the block-boundary risk set.
+    the block-boundary risk set (on ``device``, the runs' own by default).
+    A streaming build's runs are spilled memmaps, and its exact parts come
+    back as host arrays.
 
     A block build examines at most ``rounds * K`` tokens a suffix, so a
     suffix further than that from the block end was ordered by genuine
     global tokens; the rest, and whole blocks with unresolved ties, are
     re-ranked against the store.  The last block ends at the text end.
     """
-    runs: List[torch.Tensor] = []
-    risk: List[torch.Tensor] = []
+    runs: List = []
+    risk: List = []
     last = len(plan.blocks) - 1
     for bi, ((_, hi), sa_b) in enumerate(zip(plan.blocks, local_sas, strict=True)):
         if bi == last:
@@ -703,8 +931,9 @@ def _split_boundary_risk(
         keep = (hi - sa_b) > reach
         runs.append(sa_b[keep])
         risk.append(sa_b[~keep])
-    riskv = (torch.cat(risk) if risk
-             else torch.zeros((0,), dtype=torch.int64, device=local_sas[0].device))
+    dev = device if device is not None else local_sas[0].device
+    riskv = (torch.cat([_to_device(r, dev) for r in risk]) if risk
+             else torch.zeros((0,), dtype=torch.int64, device=dev))
     return [r for r in runs if r.shape[0]], riskv
 
 
@@ -723,39 +952,56 @@ def build_suffix_array_superblock(
     """Out-of-core SA build: per-superblock pipeline runs plus the merge;
     one block runs in core, with the post-hoc LCP under ``sb.emit_lcp``.
 
-    ``corpus`` is an array or a :class:`StoreBackend`; ``device`` places an
-    array's backend (the card by default) and the build runs there.
+    ``corpus`` is an array, a chunked corpus file path or a
+    :class:`StoreBackend`; ``device`` places the backend of an array or a
+    path (the card by default) and the build runs there.  With the chunked
+    backend the build is out of host RAM: see the module docstring.
     """
-    if isinstance(corpus, (str, os.PathLike)):
-        raise NotImplementedError(f"chunked corpus files {_PERSISTENCE}")
     _refuse_unported(sb)
-    if isinstance(corpus, StoreBackend):
-        backend = corpus
-    else:
-        backend = InMemoryBackend(np.asarray(corpus, np.int32), cfg, device=device)
+    needs_scratch = (
+        isinstance(corpus, (str, os.PathLike))
+        or (isinstance(corpus, StoreBackend)
+            and not isinstance(corpus, InMemoryBackend))
+        or (not isinstance(corpus, StoreBackend) and sb.store_backend == "chunked")
+    )
+    if sb.spill_dir is not None:
+        os.makedirs(sb.spill_dir, exist_ok=True)
+    scratch = _Scratch(sb.spill_dir) if needs_scratch else None
+    backend: Optional[StoreBackend] = None
     try:
-        return _build_superblock(backend, lengths, cfg, sb, original_corpus=corpus)
+        if isinstance(corpus, StoreBackend):
+            device = corpus.device
+        backend = _resolve_backend(corpus, cfg, sb, scratch, resolve_device(device))
+        return _build_superblock(backend, lengths, cfg, sb, scratch,
+                                 original_corpus=corpus)
     finally:
-        if backend is not corpus:
+        if backend is not None and backend is not corpus:
             backend.close()
+        if scratch is not None:
+            scratch.cleanup()
 
 
 def _build_superblock(backend: StoreBackend, lengths, cfg: SAConfig,
-                      sb: SuperblockConfig, original_corpus) -> SAResult:
+                      sb: SuperblockConfig, scratch: Optional[_Scratch],
+                      original_corpus) -> SAResult:
     """Executor lifecycle around the phased build: ``sb.pipeline_depth >=
     1`` attaches one background worker shared by the staging prefetch, the
-    output writes and the merge's refill prefetch; it is drained and joined
-    on success and on failure alike."""
+    spill and output writes and the merge's refill prefetch; it is drained
+    and joined on success and on failure alike, and a failure unlinks the
+    output sink's temporary memmaps."""
     pipe: Optional[PipelineExecutor] = None
     if sb.pipeline_depth > 0:
         pipe = PipelineExecutor(depth=sb.pipeline_depth, name="sa-pipeline")
+    if scratch is not None:
+        scratch.executor = pipe
     sinks: List[_OutputSink] = []
     try:
-        res = _build_superblock_phases(backend, lengths, cfg, sb,
+        res = _build_superblock_phases(backend, lengths, cfg, sb, scratch,
                                        original_corpus, pipe, sinks)
     except BaseException:
         for s in sinks:
-            s.abort()
+            with contextlib.suppress(BaseException):
+                s.abort()
         if pipe is not None:
             with contextlib.suppress(BaseException):
                 pipe.close()
@@ -765,15 +1011,25 @@ def _build_superblock(backend: StoreBackend, lengths, cfg: SAConfig,
     return res
 
 
+def _budget(sb: SuperblockConfig) -> int:
+    return sb.cache_budget_bytes if sb.cache_budget_bytes > 0 else DEFAULT_CACHE_BUDGET
+
+
 def _build_superblock_phases(
     backend: StoreBackend,
     lengths,
     cfg: SAConfig,
     sb: SuperblockConfig,
+    scratch: Optional[_Scratch],
     original_corpus,
     pipe: Optional[PipelineExecutor],
     sinks: List[_OutputSink],
 ) -> SAResult:
+    if sb.write_manifest and not sb.spill_dir:
+        raise ValueError(
+            "write_manifest needs spill_dir: the manifest finalizes that "
+            "directory as the reopenable index"
+        )
     plan = plan_superblocks(backend.shape, cfg, sb)
     dev = backend.device
     if plan.num_superblocks <= 1:
@@ -781,10 +1037,14 @@ def _build_superblock_phases(
                             request_capacity=sb.request_capacity)
         res = build_suffix_array(store.stage_items(0, backend.n), lengths=lengths,
                                  cfg=cfg, device=dev)
+        # no ordered emission to piggyback on: the LCP is computed post hoc
+        # from the finished SA, and the index directory is written wholesale
         if sb.emit_lcp and res.lcp is None:
             batch = CUDA_LCP_BATCH if dev.type == "cuda" else 1 << 16
             res.lcp = lcp_from_sa(store, res.suffix_array, batch=batch)
             res.stats["emit_lcp"] = True
+        if sb.write_manifest:
+            _write_index_manifest(res, backend, cfg, sb, scratch)
         return res
     if sb.merge_backend not in ("host", "device"):
         raise ValueError(f"unknown merge_backend: {sb.merge_backend!r}")
@@ -793,15 +1053,41 @@ def _build_superblock_phases(
     if sb.merge_algorithm != "merge_path":
         raise NotImplementedError(
             f"the {sb.merge_algorithm} merge {_ITEM_9B}")
+    streaming = not isinstance(backend, InMemoryBackend)
+    if streaming and sb.merge_backend == "device":
+        raise ValueError(
+            "merge_backend='device' needs the corpus HBM-resident; "
+            "use store_backend='memory' (the chunked backend exists to keep "
+            "the corpus off-host, which the device refiner cannot serve)"
+        )
+    assert not streaming or scratch is not None  # the wrapper provides it
 
     store = CorpusStore(
         None, cfg, backend=backend,
         request_capacity=min(sb.request_capacity, plan.capacity_records),
     )
+    frontier = None
+    if streaming:
+        # LRU half + read-ahead eighth; the rest is slack for tie-depth
+        # escalation (the tile's rows widen as groups escalate)
+        wb = store.k * 4
+        frontier = _MergeFrontier(
+            readahead_bytes=max(_budget(sb) // 8, 2 * plan.num_superblocks * wb),
+            window_bytes=wb)
+
+    def keep_run(run):
+        """A sorted run as the merge takes it: streaming, spilled to disk
+        (a run that already is a spill's memmap stays as it is); else a
+        tensor on the store's device."""
+        if streaming:
+            if run.shape[0] and not isinstance(run, np.memmap):
+                return scratch.spill_run(run)
+            return run
+        return _to_device(run, dev)
 
     # ---- phase 2: local SA per superblock -------------------------------
     corpus_tokens = backend.n * max(1, backend.row_len)
-    local_sas: List[torch.Tensor] = []
+    local_sas: List = []
     fp = Footprint(
         input=corpus_tokens * store.token_bytes,
         store_put=corpus_tokens * store.token_bytes,
@@ -810,25 +1096,42 @@ def _build_superblock_phases(
     block_stats = []
     blocks = list(plan.blocks)
     # staging prefetch: while block i builds, the worker stages the next
-    # blocks (up to pipeline_depth ahead); staged volume is accounted on
-    # this thread when a stage is collected
+    # blocks (up to pipeline_depth ahead).  Streaming builds register each
+    # prefetched block's bytes as frontier, within the budget's non-LRU half
+    # (idle during phase 2); a block too big for it stages synchronously.
+    stage_share = _budget(sb) // 2 if streaming else 0
     prefetched: dict = {}
+    pf_registered = 0
 
     def _submit_stages(next_i: int) -> None:
+        nonlocal pf_registered
         if pipe is None:
             return
         for j in range(next_i, min(len(blocks), next_i + pipe.depth)):
-            if j not in prefetched:
-                prefetched[j] = pipe.submit(store.stage_read, *blocks[j])
+            if j in prefetched:
+                continue
+            blo, bhi = blocks[j]
+            reg = 0
+            if streaming:
+                reg = (bhi - blo) * max(1, backend.row_len) * 4
+                if pf_registered + reg > stage_share:
+                    break  # would overrun the budget share: stage it sync
+                store.add_frontier(reg)
+                pf_registered += reg
+            prefetched[j] = (pipe.submit(store.stage_read, blo, bhi), reg)
 
     t_stage = t_build = 0.0
     for i, (lo, hi) in enumerate(blocks):
         t0 = time.perf_counter()
-        task = prefetched.pop(i, None)
-        if task is not None:
+        entry = prefetched.pop(i, None)
+        if entry is not None:
+            task, reg = entry
             pipeline_point("stage:collect")
             block = task.result()
             store.note_staged(lo, hi, block.nbytes)
+            if reg:
+                store.add_frontier(-reg)
+                pf_registered -= reg
         else:
             block = store.stage_items(lo, hi)
         _submit_stages(i + 1)
@@ -842,7 +1145,7 @@ def _build_superblock_phases(
             lens_b = None if lengths is None else np.asarray(lengths)[lo:hi]
             res = build_suffix_array(block, lengths=lens_b, cfg=cfg, device=dev)
             sa_b = res.suffix_array + (np.int64(lo) << plan.stride_bits)
-        local_sas.append(torch.from_numpy(sa_b).to(dev))
+        local_sas.append(keep_run(sa_b))
         bf = res.footprint
         fp.shuffle += bf.shuffle
         fp.fetch_request += bf.fetch_request
@@ -852,6 +1155,8 @@ def _build_superblock_phases(
         fp.peak_records = max(fp.peak_records, res.stats["num_suffixes"])
         block_stats.append(res.stats)
         t_build += time.perf_counter() - t0
+    if scratch is not None:
+        scratch.drain_spills()  # spilled runs must be on disk before reads
 
     # ---- phase 3: boundary-exact merge via the store --------------------
     t_merge0 = time.perf_counter()
@@ -860,14 +1165,19 @@ def _build_superblock_phases(
     cap = plan.capacity_records
     pre_requests = store.requests
     total_suffixes = int(sum(r.shape[0] for r in local_sas))
-    pair_lcp = None
+    out_path = lcp_path = pair_lcp = None
+    if sb.spill_dir is not None:
+        out_path = os.path.join(sb.spill_dir, "suffix_array.npy")
     if sb.emit_lcp:
         # emit order is final order: each emitted suffix's LCP is one
         # adjacent compare against the previous one, served by the store
         def pair_lcp(a, b):
             return pairwise_lcp(store, a, b)
 
-    sink = _OutputSink(total_suffixes, dev, pair_lcp=pair_lcp, executor=pipe)
+        if sb.spill_dir is not None:
+            lcp_path = os.path.join(sb.spill_dir, "lcp.npy")
+    sink = _OutputSink(total_suffixes, dev, pair_lcp=pair_lcp, executor=pipe,
+                       memmap_path=out_path, lcp_path=lcp_path)
     sinks.append(sink)
     peak_candidates = 0
 
@@ -884,23 +1194,28 @@ def _build_superblock_phases(
             return _refine_sort(store, g)
 
     if plan.text_mode:
-        runs, risk = _split_boundary_risk(plan, local_sas, block_stats, store.k)
+        runs, risk = _split_boundary_risk(plan, local_sas, block_stats, store.k,
+                                          device=dev)
+        runs = [keep_run(r) for r in runs]  # re-spill the filtered runs
         bad = [risk] if risk.shape[0] else []
     else:
         # reads mode: block runs are exact, unless a block hit the
         # refinement hard cap; such blocks are re-ranked like a risk set
         runs = [r for r, st in zip(local_sas, block_stats, strict=True)
                 if st.get("unresolved", 0) == 0]
-        bad = [r for r, st in zip(local_sas, block_stats, strict=True)
+        bad = [_to_device(r, dev) for r, st in zip(local_sas, block_stats, strict=True)
                if st.get("unresolved", 0) != 0]
     pieces = []
     if bad:
-        pieces = [p for p in _sorted_runs(store, torch.cat(bad), cap, samples, refine)
+        pieces = [keep_run(p) for p in
+                  _sorted_runs(store, torch.cat(bad), cap, samples, refine)
                   if p.shape[0]]
+    if scratch is not None:
+        scratch.drain_spills()  # the merge reads these runs next
     if runs:
         peak_candidates = _merge_path_runs(
             store, runs + pieces, sink, cap, sb.merge_tile, cfg.use_pallas,
-            refiner=refiner, executor=pipe,
+            refiner=refiner, frontier=frontier, executor=pipe,
         )
     else:
         # every suffix was at risk: the re-ranked pieces already are
@@ -942,17 +1257,16 @@ def _build_superblock_phases(
         "block_rounds": [s["rounds"] for s in block_stats],
         "dropped": fp.dropped,
         "unresolved": sum(s["unresolved"] for s in block_stats),
-        "store_backend": "memory",
+        "store_backend": "chunked" if streaming else "memory",
         "corpus_bytes": backend.corpus_bytes,
         "peak_resident_bytes": fp.peak_resident_bytes,
         "store_cache_hits": backend.cache_hits,
         "store_cache_misses": backend.cache_misses,
         "store_cache_hit_rate": backend.hit_rate,
-        # spills, the sanitizer, the journal and store retries are off on
-        # this path (items 8 and 9b)
-        "spilled_runs": 0,
-        "spilled_bytes": 0,
+        "spilled_runs": scratch.spilled_runs if scratch else 0,
+        "spilled_bytes": scratch.spilled_bytes if scratch else 0,
         "emit_lcp": bool(sb.emit_lcp),
+        # the sanitizer, the journal and store retries are item 9b
         "sanitized": False,
         "journaled": False,
         "journal_hits": 0,
@@ -963,7 +1277,35 @@ def _build_superblock_phases(
         "t_build_s": round(t_build, 6),
         "t_merge_s": round(t_merge, 6),
     }
-    return SAResult(suffix_array=sa, footprint=fp, stats=stats, lcp=sink.lcp)
+    res = SAResult(suffix_array=sa, footprint=fp, stats=stats, lcp=sink.lcp)
+    if sb.write_manifest:
+        _write_index_manifest(res, backend, cfg, sb, scratch)
+    return res
+
+
+def _write_index_manifest(res: SAResult, backend: StoreBackend, cfg: SAConfig,
+                          sb: SuperblockConfig, scratch: Optional[_Scratch]) -> None:
+    """Finalize ``sb.spill_dir`` as a reopenable index directory
+    (``repro.core.superblock._write_index_manifest``): the corpus is
+    referenced in place when the backend serves a persistent chunked file
+    (the caller's own, or the copy ``_resolve_backend`` placed in
+    ``spill_dir``); a scratch-resident or in-memory corpus is serialized
+    into the directory, since scratch dies with the build."""
+    from repro_torch.core import index_io
+
+    corpus_ref = None
+    p = getattr(backend, "path", None)
+    if p is not None:
+        ap = os.path.abspath(p)
+        in_scratch = scratch is not None and ap.startswith(
+            os.path.abspath(scratch.dir) + os.sep)
+        if not in_scratch:
+            corpus_ref = ap
+    index_io.save_index(
+        sb.spill_dir, cfg, backend, res.suffix_array, res.lcp, res.stats,
+        corpus_ref=corpus_ref, chunk_items=sb.chunk_records,
+    )
+    res.stats["index_dir"] = sb.spill_dir
 
 
 def build_suffix_array_auto(
@@ -975,13 +1317,18 @@ def build_suffix_array_auto(
 ) -> SAResult:
     """Single-pass build when the record set fits one run (the launcher's
     policy); a plan of more blocks, an LCP array or a manifest goes through
-    :func:`build_suffix_array_superblock`, as in ``repro``.  ``device`` as
-    for :func:`repro_torch.core.pipeline.build_suffix_array`."""
+    :func:`build_suffix_array_superblock`, as in ``repro``.  ``corpus`` is
+    an array, a chunked corpus file path or a :class:`StoreBackend`;
+    ``device`` as for :func:`repro_torch.core.pipeline.build_suffix_array`."""
     sb = sb or SuperblockConfig()
     plan = plan_superblocks(corpus_shape_of(corpus), cfg, sb)
     if plan.num_superblocks <= 1 and not (sb.emit_lcp or sb.write_manifest):
         if isinstance(corpus, StoreBackend):
             corpus = materialize_backend(corpus)
+        elif isinstance(corpus, (str, os.PathLike)):
+            from repro_torch.data import chunk_store
+
+            corpus = chunk_store.load_corpus(os.fspath(corpus))
         return build_suffix_array(corpus, lengths=lengths, cfg=cfg, device=device)
     return build_suffix_array_superblock(corpus, lengths=lengths, cfg=cfg, sb=sb,
                                          device=device)

@@ -23,6 +23,19 @@ CMP_SHAPES = [(1, 4, 8), (100, 8, 32), (700, 6, 256)]  # (n, k, block)
 CMP_EDGE_K = (6, 40)  # window widths of the edge-row cases
 MERGE_SHAPES = [(5, 2, 8), (100, 4, 32), (700, 3, 256), (256, 6, 128)]  # (c, w, block)
 MERGE_EDGE = ("duplicates", "w1", "w64", "c1", "ragged", "negative", "int32-max")
+HIST_SHAPES = [(100, 4), (2048, 64), (999, 256), (7, 2)]  # (n, d)
+HIST_BLOCK = 256
+SORT_SHAPES = [(16, 16), (100, 64), (1024, 256), (5, 8)]  # (n, tile)
+INT32_MAX = int(np.iinfo(np.int32).max)
+# the smallest inputs on which the Pallas kernels differ from
+# ``repro.kernels.ref`` (ROADMAP.md section 3): keys at int32 max, where
+# their int32-max padding collides with real data
+HIST_FAULT = dict(  # bucket_hist, block 8
+    key_hi=[1, 5, INT32_MAX, 3, INT32_MAX], key_lo=[2, 0, INT32_MAX, 1, INT32_MAX],
+    split_hi=[2, INT32_MAX], split_lo=[0, INT32_MAX], block=8)
+SORT_FAULT = dict(  # bitonic_sort_tiles, tile 8
+    key_hi=[INT32_MAX, 1, INT32_MAX], key_lo=[INT32_MAX, 0, INT32_MAX],
+    val=[7, 8, 9], tile=8)
 
 
 def pack_tokens(kw: dict, n: int) -> np.ndarray:
@@ -122,3 +135,46 @@ def merge_edge_inputs(name: str) -> np.ndarray:
                       size=(333, 4))
     return keys.astype(np.int32)
 
+
+
+def hist_inputs(n: int, d: int):
+    """key_hi, key_lo (n,) and split_hi, split_lo (d-1,) int32 as
+    ``tests/test_kernels.py`` draws them: 20-bit words, splitters sorted by
+    their high word only.  Seeded by ``n + d``."""
+    rng = np.random.default_rng(n + d)
+    kh = rng.integers(0, 1 << 20, size=(n,)).astype(np.int32)
+    kl = rng.integers(0, 1 << 20, size=(n,)).astype(np.int32)
+    sh = np.sort(rng.integers(0, 1 << 20, size=(d - 1,))).astype(np.int32)
+    sl = rng.integers(0, 1 << 20, size=(d - 1,)).astype(np.int32)
+    return kh, kl, sh, sl
+
+
+def sort_inputs(n: int, tile: int):
+    """key_hi, key_lo, val (n,) int32 as ``tests/test_kernels.py`` draws
+    them: keys in [0, 50) (many ties), values a permutation.  Seeded by
+    ``n + tile``."""
+    rng = np.random.default_rng(n + tile)
+    kh = rng.integers(0, 50, size=(n,)).astype(np.int32)
+    kl = rng.integers(0, 50, size=(n,)).astype(np.int32)
+    v = rng.permutation(n).astype(np.int32)
+    return kh, kl, v
+
+
+def fault_arrays(case: dict):
+    """The int32 arrays of a fault case, and its block/tile."""
+    arrays = {k: np.asarray(v, np.int32) for k, v in case.items()
+              if k not in ("block", "tile")}
+    return arrays, case.get("block", case.get("tile"))
+
+
+def sorted_rows(kh, kl, v):
+    """(n, 3) rows in (key_hi, key_lo, val) order, on the tensors' device:
+    two outputs of a tile sort that agree on the keys row for row hold the
+    same values within each key group exactly when their ``sorted_rows``
+    are equal."""
+    import torch
+
+    rows = torch.stack([kh, kl, v], 1)
+    for col in (2, 1, 0):  # a lexsort as chained stable sorts
+        rows = rows[torch.sort(rows[:, col], stable=True).indices]
+    return rows

@@ -3,12 +3,11 @@ defaults of ``repro/kernels/ops.py``.
 
 A tensor on the CPU goes to the kernel's plain version in ``ref``; a CUDA
 tensor launches the hand-written kernel, which raises on what it does not
-take.  There is no fallback from one to the other.  Kernels not yet ported
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+take.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import KERNEL_REGISTRY, ref
+from repro_torch.kernels import ref
 
 
 def prefix_pack(tokens, cfg, block: int = 512):
@@ -27,18 +26,20 @@ def window_gather(corpus, rows, offs, k: int):
     return _window_gather(corpus, rows, offs, k)
 
 
-def _not_ported(key: str):
-    raise NotImplementedError(
-        f"the {key} kernel is not ported yet (ROADMAP.md "
-        f"{KERNEL_REGISTRY[key].roadmap})")
-
-
 def bucket_hist(key_hi, key_lo, split_hi, split_lo, block: int = 1024):
-    _not_ported("bucket_hist")
+    if key_hi.device.type == "cpu":
+        return ref.bucket_hist_ref(key_hi, key_lo, split_hi, split_lo)
+    from repro_torch.kernels.bucket_hist import bucket_hist as _bucket_hist
+
+    return _bucket_hist(key_hi, key_lo, split_hi, split_lo, block=block)
 
 
 def bitonic_sort_tiles(key_hi, key_lo, val, tile: int = 1024):
-    _not_ported("bitonic_sort")
+    if key_hi.device.type == "cpu":
+        return ref.bitonic_sort_tiles_ref(key_hi, key_lo, val, tile)
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_tiles as _bitonic
+
+    return _bitonic(key_hi, key_lo, val, tile=tile)
 
 
 def merge_path_ranks(keys, block: int = 256):

@@ -23,6 +23,42 @@ def window_gather_ref(corpus, rows, offs, k):
     return encoding.window_at(corpus, rows, offs, k)
 
 
+def _fold(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two int32 key words -> one int64 whose order is their lexicographic
+    order: ``hi`` in the high word, ``lo`` with its sign bit flipped in the
+    low word (the kernels' ``fold``)."""
+    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) + (1 << 31))
+
+
+def bucket_hist_ref(key_hi, key_lo, split_hi, split_lo):
+    """keys (N,), splitters (D-1,) int32 -> (bucket (N,), hist (D,)) int32:
+    ``bucket = #{splitters lexicographically < key}`` and its histogram
+    (``repro.kernels.ref.bucket_hist_ref``).  One pass over the keys per
+    splitter, so no (N, D-1) matrix is built."""
+    keys = _fold(key_hi, key_lo)
+    bucket = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    for s in _fold(split_hi, split_lo):
+        bucket += keys > s
+    hist = torch.bincount(bucket, minlength=split_hi.shape[0] + 1)
+    return bucket, hist.to(torch.int32)
+
+
+def bitonic_sort_tiles_ref(key_hi, key_lo, val, tile: int):
+    """Each ``tile`` rows of (key_hi, key_lo, val) int32 sorted by the keys,
+    ascending (``repro.kernels.ref.bitonic_sort_tiles_ref``): a stable sort
+    of the tiles, the short last one padded with the largest key, so real
+    rows keep the front of their tile and ties keep their input order."""
+    n = key_hi.shape[0]
+    ntiles = max(1, -(-n // tile))
+    keys = torch.full((ntiles * tile,), torch.iinfo(torch.int64).max,
+                      dtype=torch.int64, device=key_hi.device)
+    keys[:n] = _fold(key_hi, key_lo)
+    order = torch.sort(keys.view(ntiles, tile), dim=1, stable=True).indices
+    order = (order + torch.arange(ntiles, device=keys.device)[:, None] * tile)
+    order = order.reshape(-1)[:n]
+    return tuple(t[order] for t in (key_hi, key_lo, val))
+
+
 def pattern_cmp_ref(sfx, pat, start, stop):
     """(B, K) suffix/pattern windows + (B,) [start, stop) token ranges ->
     (B, 2) int32 ``[cmp, matched]``, in int32 arithmetic as the JAX kernel

@@ -5,30 +5,34 @@
     PYTHONPATH=src python -m repro_torch.launch.sa_build --device cpu --reads 50
     PYTHONPATH=src python -m repro_torch.launch.sa_build --device cpu \
         --reads 800 --read-len 48 --superblocks 3     # the out-of-core build
+    PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 800 \
+        --read-len 48 --superblocks 4 --store-backend chunked \
+        --cache-budget 65536             # disk-streamed: bounded resident bytes
+    PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 2000 \
+        --index-dir /data/ix             # persist a queryable index directory
 
 The ``--mode scheme`` path of ``repro.launch.sa_build``, single-pass or
 out-of-core (``--superblocks``, ``--max-records-per-run``, with
-``--merge-backend``, ``--merge-tile`` and ``--pipeline-depth``), with the
-same flags, corpus synthesis and printout.  ``--device cuda`` (the default)
-runs on ``cuda:0`` with the hand-written kernels (``use_pallas=True``);
+``--merge-backend``, ``--merge-tile`` and ``--pipeline-depth``), streaming
+(``--store-backend chunked``, ``--cache-budget``, ``--chunk-records``,
+``--corpus-file``) and persisted (``--index-dir``), with the same flags,
+corpus synthesis and printout.  ``--corpus-file`` names a chunked corpus
+file: an existing one is built as it is, a fresh path gets the synthesized
+corpus written there first and kept.  ``--device cuda`` (the default) runs
+on ``cuda:0`` with the hand-written kernels (``use_pallas=True``);
 ``--device cpu`` runs the plain PyTorch path.  Flags of paths not yet ported
 exit with an error naming the ROADMAP.md item that ports them: the k-way and
-re-rank merges, resume and store retries are item 9b; the chunked store,
-corpus files and index directories are item 8.
+re-rank merges, resume and store retries are item 9b.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 # flag -> (value that means "not used", ROADMAP.md item that ports its path)
 UNPORTED = {
     "merge_algorithm": ("merge_path", "9b"),
-    "store_backend": ("memory", "8"),
-    "corpus_file": (None, "8"),
-    "cache_budget": (0, "8"),
-    "chunk_records": (0, "8"),
-    "index_dir": (None, "8"),
     "resume": (False, "9b"),
     "store_retries": (0, "9b"),
 }
@@ -63,18 +67,30 @@ def parse_args(argv=None):
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="background buffers for the pipelined build; "
                          "0 = fully synchronous")
-    # merge, persistence and streaming flags of repro.launch.sa_build not
-    # ported yet: accepted so scripts keep working, refused unless left at
-    # their default
+    ap.add_argument("--store-backend", choices=["memory", "chunked"],
+                    default="memory",
+                    help="out-of-core merge store: corpus resident on the "
+                         "device (memory) or disk-chunked with a bounded LRU "
+                         "cache on the host")
+    ap.add_argument("--corpus-file", default=None,
+                    help="chunked corpus file: read if it exists, else the "
+                         "synthesized corpus is written there and streamed "
+                         "(implies --store-backend chunked)")
+    ap.add_argument("--cache-budget", type=int, default=0,
+                    help="chunked-backend resident-byte budget, store cache "
+                         "+ merge frontier (0 = 64 MiB default)")
+    ap.add_argument("--chunk-records", type=int, default=0,
+                    help="corpus items per on-disk chunk when serializing "
+                         "(0 = derive from the cache budget)")
+    ap.add_argument("--index-dir", default=None,
+                    help="finalize the build as a reopenable index directory "
+                         "(SA + LCP + corpus + manifest); serve it with "
+                         "repro_torch.launch.serve --index-dir")
+    # merge and crash-safety flags of repro.launch.sa_build not ported yet:
+    # accepted so scripts keep working, refused unless left at their default
     ap.add_argument("--merge-algorithm",
                     choices=["merge_path", "kway", "rerank"],
                     default="merge_path")
-    ap.add_argument("--store-backend", choices=["memory", "chunked"],
-                    default="memory")
-    ap.add_argument("--corpus-file", default=None)
-    ap.add_argument("--cache-budget", type=int, default=0)
-    ap.add_argument("--chunk-records", type=int, default=0)
-    ap.add_argument("--index-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--store-retries", type=int, default=0)
     args = ap.parse_args(argv)
@@ -118,8 +134,31 @@ def make_superblock_config(args):
         max_records_per_run=args.max_records_per_run,
         merge_backend=args.merge_backend,
         merge_tile=args.merge_tile,
+        store_backend="chunked" if args.corpus_file else args.store_backend,
+        chunk_records=args.chunk_records,
+        cache_budget_bytes=args.cache_budget,
+        spill_dir=args.index_dir,
+        emit_lcp=bool(args.index_dir),
+        write_manifest=bool(args.index_dir),
         pipeline_depth=args.pipeline_depth,
     )
+
+
+def write_corpus_file(corpus, args) -> None:
+    """Serialize the synthesized corpus to ``--corpus-file`` once, chunk by
+    chunk through the streaming writer, as ``repro.launch.sa_build`` does."""
+    from repro_torch.core.store import DEFAULT_CACHE_BUDGET
+    from repro_torch.data.chunk_store import chunk_items_for_budget, write_chunked_stream
+
+    items = corpus.shape[0]
+    row_len = 1 if corpus.ndim == 1 else corpus.shape[1]
+    # the written chunks always fit the backend's LRU half-budget
+    budget = args.cache_budget if args.cache_budget > 0 else DEFAULT_CACHE_BUDGET
+    chunk_items = args.chunk_records or chunk_items_for_budget(items, row_len, budget)
+    batches = (corpus[lo : lo + chunk_items] for lo in range(0, items, chunk_items))
+    meta = write_chunked_stream(batches, args.corpus_file, chunk_items=chunk_items)
+    print(f"wrote {args.corpus_file}: {meta.items} items x {meta.row_len}, "
+          f"{meta.num_chunks} chunks of {meta.chunk_items}")
 
 
 def run(corpus, cfg, device: str, sb=None):
@@ -135,29 +174,45 @@ def run(corpus, cfg, device: str, sb=None):
     return res, time.perf_counter() - t0
 
 
-def report(res, dt: float, mode: str = "scheme") -> None:
+def report(res, dt: float, mode: str = "scheme", index_dir=None) -> None:
     n = res.stats["num_suffixes"]
     print(f"mode={mode} suffixes={n} time={dt:.2f}s "
           f"({n / dt:.0f} suffixes/s)")
     for k, v in res.footprint.units().items():
         print(f"  {k:>17}: {v if isinstance(v, int) else round(v, 3)}")
+    if res.stats.get("store_backend") == "chunked":
+        print(f"streaming: peak_resident={res.footprint.peak_resident_bytes}B "
+              f"of corpus={res.stats['corpus_bytes']}B, cache hit rate "
+              f"{res.stats['store_cache_hit_rate']:.2f}, "
+              f"{res.stats['spilled_runs']} spilled runs "
+              f"({res.stats['spilled_bytes']}B)")
+    if index_dir:
+        print(f"index: {res.stats['index_dir']} (serve with "
+              f"python -m repro_torch.launch.serve --index-dir {index_dir})")
     print(f"stats: {res.stats}")
 
 
 def main(argv=None):
-    from repro_torch.core.superblock import plan_superblocks
+    from repro_torch.core.superblock import corpus_shape_of, plan_superblocks
 
     args = parse_args(argv)
-    corpus = make_corpus(args)
+    corpus = None
+    if not (args.corpus_file and os.path.exists(args.corpus_file)):
+        corpus = make_corpus(args)
     cfg = make_config(args.packing, args.device)
     sb = make_superblock_config(args)
-    plan = plan_superblocks(corpus.shape, cfg, sb)
+    source = corpus
+    if args.corpus_file:
+        if corpus is not None:  # fresh path: serialize once, then stream
+            write_corpus_file(corpus, args)
+        source = args.corpus_file
+    plan = plan_superblocks(corpus_shape_of(source), cfg, sb)
     if plan.num_superblocks > 1:
         print(f"out-of-core: {plan.total_records} records > "
               f"{plan.capacity_records}/run -> {plan.num_superblocks} "
               f"superblocks ({sb.store_backend} store backend)")
-    res, dt = run(corpus, cfg, args.device, sb=sb)
-    report(res, dt, args.mode)
+    res, dt = run(source, cfg, args.device, sb=sb)
+    report(res, dt, args.mode, index_dir=args.index_dir)
     return res
 
 

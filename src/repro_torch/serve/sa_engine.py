@@ -15,8 +15,12 @@ tensors), :func:`repro_torch.core.search.masked_cmp` otherwise.  The public
 types stay the JAX package's: numpy counts and positions, tuple lists.
 
 :class:`SuffixArrayIndex` builds with the post-hoc LCP array on the card by
-default.  ``open``, ``save`` and ``build(index_dir=...)`` are ROADMAP.md
-item 8.
+default, saves and opens the index directories of
+``repro_torch.core.index_io`` (byte-compatible with ``repro``'s), and
+builds straight into one with ``build(index_dir=...)``.  A reopened index
+puts SA, LCP and LLCP/RLCP on the card as a freshly built one does; its
+corpus stays on disk behind the chunked backend's cache, or on the card
+with ``store_backend="memory"``.
 """
 from __future__ import annotations
 
@@ -30,7 +34,12 @@ import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
 from repro_torch.core.search import masked_cmp
-from repro_torch.core.store import CorpusStore, InMemoryBackend, StoreBackend
+from repro_torch.core.store import (
+    ChunkedFileBackend,
+    CorpusStore,
+    InMemoryBackend,
+    StoreBackend,
+)
 from repro_torch.device import resolve_device
 
 __all__ = ["ShardedSAEngine", "SuffixArrayIndex"]
@@ -103,6 +112,25 @@ def _nonzero(mask: torch.Tensor) -> torch.Tensor:
 # the engine
 # ---------------------------------------------------------------------------
 
+# entries of a host array copied to the device at once
+_COPY_CHUNK = 1 << 26
+
+
+def _on_device(arr, device) -> torch.Tensor:
+    """An int64 copy of ``arr`` on ``device``.  A host array (a reopened
+    index's read-only memmap included) is copied in slices of
+    ``_COPY_CHUNK`` entries, so no second host copy of a 1.6 GB SA is
+    made."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=device, dtype=torch.int64)
+    arr = np.asarray(arr)
+    out = torch.empty(arr.shape, dtype=torch.int64, device=device)
+    for lo in range(0, arr.shape[0], _COPY_CHUNK):
+        part = np.array(arr[lo : lo + _COPY_CHUNK], dtype=np.int64)
+        out[lo : lo + part.shape[0]] = torch.from_numpy(part)
+    return out
+
+
 
 class ShardedSAEngine:
     """Batched queries over (store, sa[, lcp]) on the store's device."""
@@ -119,9 +147,8 @@ class ShardedSAEngine:
     ):
         self.store = store
         dev = self.device = store.device
-        self.sa = torch.as_tensor(sa, dtype=torch.int64, device=dev)
-        self.lcp = (None if lcp is None
-                    else torch.as_tensor(lcp, dtype=torch.int64, device=dev))
+        self.sa = _on_device(sa, dev)
+        self.lcp = None if lcp is None else _on_device(lcp, dev)
         n = self.sa.shape[0]
         if num_shards <= 0:
             # the JAX engine's local device count
@@ -407,9 +434,6 @@ class ShardedSAEngine:
 # the facade
 # ---------------------------------------------------------------------------
 
-_PERSISTENCE = "index directories (open, save, build(index_dir=...)) are ROADMAP.md item 8"
-
-
 class SuffixArrayIndex:
     """Build → query over one index (``repro.serve.sa_engine.SuffixArrayIndex``).
 
@@ -418,11 +442,16 @@ class SuffixArrayIndex:
         idx = SuffixArrayIndex.build(reads, cfg=SAConfig(vocab_size=4))
         idx.count(pattern)                  # one pattern -> int
         idx.align([p1, p2, p3])             # batch -> list of match lists
+        idx.save("/data/my_index")
+
+        idx = SuffixArrayIndex.open("/data/my_index")   # no rebuild
+        idx.locate(pattern)
 
     Queries accept one pattern (a 1-D sequence of ints) or a batch (list of
     sequences / 2-D array) and return unbatched / batched results
     correspondingly.  ``sa`` and ``lcp`` are host arrays as in the JAX
-    package; the engine keeps its copies on the store's device.
+    package (memmaps of a reopened index); the engine keeps its copies on
+    the store's device.  ``build(index_dir=...)`` persists during the build.
     """
 
     def __init__(
@@ -463,35 +492,95 @@ class SuffixArrayIndex:
     ) -> "SuffixArrayIndex":
         """Build (``build_suffix_array_auto``) and wrap for querying.
 
-        ``device`` places the corpus, the build and the engine: the card by
-        default (raises without CUDA), ``"cpu"`` for the plain path.  As in
-        the JAX package the build's store serves the LCP and is discarded,
-        and a fresh store serves the queries.
+        ``corpus`` is an array, a chunked corpus file path or a store
+        backend.  ``device`` places the corpus, the build and the engine:
+        the card by default (raises without CUDA), ``"cpu"`` for the plain
+        path.  As in the JAX package the build's store serves the LCP and is
+        discarded, and a fresh store serves the queries.  ``index_dir``
+        persists the index during the build (it doubles as the superblock
+        ``spill_dir``, so streamed output lands there directly); the
+        returned index serves from that directory.
         """
         from repro_torch.core.superblock import build_suffix_array_auto
 
-        if index_dir is not None or isinstance(corpus, (str, os.PathLike)):
-            raise NotImplementedError(_PERSISTENCE)
         cfg = cfg or SAConfig()
         sb = sb or SuperblockConfig()
-        if emit_lcp and not sb.emit_lcp:
+        if index_dir is not None:
+            sb = dataclasses.replace(sb, spill_dir=index_dir, write_manifest=True,
+                                     emit_lcp=emit_lcp or sb.emit_lcp)
+        elif emit_lcp and not sb.emit_lcp:
             sb = dataclasses.replace(sb, emit_lcp=True)
         if isinstance(corpus, StoreBackend):
             device = corpus.device
         device = resolve_device(device)
         res = build_suffix_array_auto(corpus, lengths=lengths, cfg=cfg, sb=sb,
                                       device=device)
-        store = CorpusStore(None, cfg, backend=_serving_backend(corpus, cfg, device),
+        if index_dir is not None:
+            idx = cls.open(
+                index_dir,
+                store_backend=("memory" if sb.store_backend == "memory"
+                               else "chunked"),
+                cache_budget_bytes=sb.cache_budget_bytes, device=device,
+                **engine_kw,
+            )
+            idx.build_stats = res.stats
+            return idx
+        store = CorpusStore(None, cfg,
+                            backend=_serving_backend(corpus, cfg, sb, device),
                             request_capacity=sb.request_capacity)
         return cls(store, res.suffix_array, lcp=res.lcp, stats=res.stats,
                    **engine_kw)
 
     @classmethod
-    def open(cls, index_dir: str, **kw) -> "SuffixArrayIndex":
-        raise NotImplementedError(_PERSISTENCE)
+    def open(
+        cls,
+        index_dir: str,
+        store_backend: str = "chunked",
+        cache_budget_bytes: int = 0,
+        request_capacity: int = 4096,
+        verify: str = "lazy",
+        device=None,
+        **engine_kw,
+    ) -> "SuffixArrayIndex":
+        """Serve a previously built index directory, ``repro``'s or the
+        port's, with no rebuild.
+
+        ``store_backend="chunked"`` (default) keeps the corpus on disk
+        behind the budgeted LRU chunk cache; ``"memory"`` puts it on
+        ``device``.  ``verify`` sets the integrity posture (``"eager"`` /
+        ``"lazy"`` / ``"off"``, see
+        :func:`repro_torch.core.index_io.open_index`); failures raise
+        :class:`repro_torch.core.integrity.CorruptionError` naming the
+        artifact.  The engine's SA, LCP and LLCP/RLCP go to ``device``.
+        """
+        from repro_torch.core import index_io
+
+        device = resolve_device(device)
+        backend, sa, lcp, manifest = index_io.open_index(
+            index_dir, store_backend=store_backend,
+            cache_budget_bytes=cache_budget_bytes, verify=verify, device=device,
+        )
+        store = CorpusStore(None, SAConfig(**manifest["sa_config"]),
+                            backend=backend, request_capacity=request_capacity)
+        return cls(store, sa, lcp=lcp, index_dir=index_dir,
+                   stats=manifest.get("stats"), **engine_kw)
 
     def save(self, index_dir: str) -> str:
-        raise NotImplementedError(_PERSISTENCE)
+        """Write the persistent layout; returns the manifest path.  The
+        corpus is serialized into the directory unless this index already
+        serves from a persistent chunked file (then the manifest points at
+        it)."""
+        from repro_torch.core import index_io
+
+        corpus_ref = getattr(self.store.backend, "path", None)
+        if corpus_ref is not None:
+            corpus_ref = os.path.abspath(corpus_ref)
+        mpath = index_io.save_index(
+            index_dir, self.cfg, self.store.backend, self.sa, self.lcp,
+            stats=self.build_stats, corpus_ref=corpus_ref,
+        )
+        self.index_dir = index_dir
+        return mpath
 
     def close(self) -> None:
         self.store.backend.close()
@@ -540,9 +629,15 @@ class SuffixArrayIndex:
         return out
 
 
-def _serving_backend(corpus, cfg: SAConfig, device) -> StoreBackend:
-    """Backend for querying a freshly built index: the caller's backend, or
-    a new in-memory one over the array on ``device``."""
+def _serving_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
+                     device) -> StoreBackend:
+    """Backend for querying a freshly built, non-persisted index: the
+    caller's backend, a chunked one over a corpus file, or a new in-memory
+    one over the array on ``device``."""
     if isinstance(corpus, StoreBackend):
         return corpus
+    if isinstance(corpus, (str, os.PathLike)):
+        return ChunkedFileBackend(os.fspath(corpus), cfg,
+                                  cache_budget_bytes=max(sb.cache_budget_bytes, 0),
+                                  device=device)
     return InMemoryBackend(np.asarray(corpus, np.int32), cfg, device=device)

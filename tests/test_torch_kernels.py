@@ -20,9 +20,12 @@ from repro_torch.kernels import KERNEL_REGISTRY, launch_counts, ops, ref
 from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
+from repro_torch.kernels import cases
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, PACK_BLOCK, PACK_CFGS, PACK_IDS,
-    PACK_LENGTHS, cmp_edge_inputs, cmp_inputs, gather_inputs, pack_tokens)
+    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_FAULT, HIST_SHAPES,
+    PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES,
+    cmp_edge_inputs, cmp_inputs, fault_arrays, gather_inputs, hist_inputs,
+    pack_tokens, sort_inputs, sorted_rows)
 
 
 @pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
@@ -87,25 +90,94 @@ def test_registry_keys_match_repro():
     for key, entry in KERNEL_REGISTRY.items():
         assert entry.op == REF_REGISTRY[key].op
         assert callable(getattr(ops, entry.op))
-        if entry.ported:
-            assert entry.ref == REF_REGISTRY[key].ref
-            assert callable(getattr(ref, entry.ref))
-        else:
-            assert entry.roadmap
+        assert entry.ref == REF_REGISTRY[key].ref
+        assert callable(getattr(ref, entry.ref))
 
 
-@pytest.mark.parametrize("key", sorted(k for k, e in KERNEL_REGISTRY.items()
-                                       if not e.ported))
+@pytest.mark.parametrize("key", ["bitonic_sort", "bucket_hist"])
 def test_unported_ops_raise(key):
+    """The two kernels that were the last to be ported no longer raise: the
+    op takes its plain version on a CPU tensor without a launch, and the
+    CUDA wrapper refuses that tensor rather than compute on the CPU."""
+    from repro_torch.kernels import bitonic_sort as bs_mod
+    from repro_torch.kernels import bucket_hist as bh_mod
+
     x = torch.zeros(4, dtype=torch.int32)
-    args = {
-        "bucket_hist": (x, x, x[:1], x[:1]),
-        "bitonic_sort": (x, x, x),
-        "merge_path": (x.reshape(2, 2),),
-        "pattern_cmp": (x.reshape(2, 2), x.reshape(2, 2), x[:2], x[:2]),
-    }[key]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(ops, KERNEL_REGISTRY[key].op)(*args)
+    args = {"bucket_hist": (x, x, x[:1], x[:1]), "bitonic_sort": (x, x, x)}[key]
+    op = getattr(ops, KERNEL_REGISTRY[key].op)
+    before = launch_counts()
+    want = getattr(ref, KERNEL_REGISTRY[key].ref)(*args, *(() if key == "bucket_hist" else (1024,)))
+    for g, w in zip(op(*args), want, strict=True):
+        assert torch.equal(g, w)
+    assert launch_counts() == before
+    wrapper = {"bucket_hist": bh_mod.bucket_hist,
+               "bitonic_sort": bs_mod.bitonic_sort_tiles}[key]
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*args)
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("n,d", HIST_SHAPES)
+def test_bucket_hist_ref_matches_repro(n, d):
+    """The plain version against ``repro.kernels.ref`` and the Pallas kernel
+    (interpret mode) at the ``tests/test_kernels.py`` sweep."""
+    arrays = hist_inputs(n, d)
+    before = launch_counts()
+    got = ops.bucket_hist(*map(torch.from_numpy, arrays), block=HIST_BLOCK)
+    assert launch_counts() == before
+    want_ref = jref.bucket_hist_ref(*map(jnp.asarray, arrays))
+    want_kernel = ref_ops.bucket_hist(*map(jnp.asarray, arrays), block=HIST_BLOCK)
+    for g, wr, wk in zip(got, want_ref, want_kernel, strict=True):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wr))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wk))
+
+
+@pytest.mark.parametrize("n,tile", SORT_SHAPES)
+def test_bitonic_sort_tiles_ref_matches_repro(n, tile):
+    """Keys equal ``repro.kernels.ref`` and the Pallas network (interpret
+    mode) row for row; values are the same multiset within each key group
+    (``tests/test_kernels.py``'s contract)."""
+    arrays = sort_inputs(n, tile)
+    before = launch_counts()
+    got = ops.bitonic_sort_tiles(*map(torch.from_numpy, arrays), tile=tile)
+    assert launch_counts() == before
+    for want in (jref.bitonic_sort_tiles_ref(*map(jnp.asarray, arrays), tile=tile),
+                 ref_ops.bitonic_sort_tiles(*map(jnp.asarray, arrays), tile=tile)):
+        for g, w in zip(got[:2], want[:2], strict=True):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(
+            sorted_rows(*got), sorted_rows(*(torch.from_numpy(np.array(x)) for x in want)))
+
+
+def test_bucket_hist_ref_at_the_int32_max_fault_input():
+    """Keys and a splitter at (int32 max, int32 max): the plain version
+    equals ``repro.kernels.ref``; the Pallas kernel's padding lands in the
+    wrong bucket there (ROADMAP.md section 3)."""
+    arrays, block = fault_arrays(HIST_FAULT)
+    cols = [arrays[k] for k in ("key_hi", "key_lo", "split_hi", "split_lo")]
+    got = ops.bucket_hist(*map(torch.from_numpy, cols), block=block)
+    want = jref.bucket_hist_ref(*map(jnp.asarray, cols))
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].tolist() == [1, 4, 0]
+    pallas = ref_ops.bucket_hist(*map(jnp.asarray, cols), block=block)
+    assert np.asarray(pallas[1]).tolist() == [1, 7, -3]
+
+
+def test_bitonic_sort_tiles_ref_at_the_int32_max_fault_input():
+    """A real (int32 max, int32 max) row in a short tile: the plain version
+    keeps it, as ``repro.kernels.ref`` does; the Pallas network can sort a
+    padding row ahead of it and cut it off (ROADMAP.md section 3)."""
+    arrays, tile = fault_arrays(SORT_FAULT)
+    cols = [arrays[k] for k in ("key_hi", "key_lo", "val")]
+    got = ops.bitonic_sort_tiles(*map(torch.from_numpy, cols), tile=tile)
+    want = jref.bitonic_sort_tiles_ref(*map(jnp.asarray, cols), tile=tile)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[2].tolist() == [8, 7, 9]
+    pallas = ref_ops.bitonic_sort_tiles(*map(jnp.asarray, cols), tile=tile)
+    assert np.asarray(pallas[2]).tolist() == [8, 7, cases.INT32_MAX]
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -12,14 +12,18 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import SAConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import bitonic_sort as bs_mod
+from repro_torch.kernels import bucket_hist as bh_mod
 from repro_torch.kernels import merge_path as mp_mod
 from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, MERGE_EDGE, MERGE_SHAPES, PACK_BLOCK,
-    PACK_CFGS, PACK_IDS, PACK_LENGTHS, cmp_edge_inputs, cmp_inputs, gather_inputs,
-    merge_edge_inputs, merge_inputs, pack_tokens)
+    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_FAULT, HIST_SHAPES,
+    MERGE_EDGE, MERGE_SHAPES, PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS,
+    SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs, fault_arrays,
+    gather_inputs, hist_inputs, merge_edge_inputs, merge_inputs, pack_tokens,
+    sort_inputs, sorted_rows)
 
 
 @pytest.fixture
@@ -165,3 +169,60 @@ def test_out_of_core_text_build_on_card(cuda):
     text = np.random.default_rng(2).integers(1, 5, size=(600,)).astype(np.int32)
     _out_of_core_on_card(cuda, text, naive_sa_text(text))
 
+
+
+def _bucket_hist_on_card(cuda, arrays, block):
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = bh_mod.bucket_hist.launches
+    got = ops.bucket_hist(*args, block=block)
+    torch.cuda.synchronize()
+    assert bh_mod.bucket_hist.launches == before + 1
+    want = ref.bucket_hist_ref(*args)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", HIST_SHAPES)
+def test_bucket_hist_kernel_on_card(cuda, n, d):
+    bucket, hist = _bucket_hist_on_card(cuda, hist_inputs(n, d), HIST_BLOCK)
+    assert int(hist.sum()) == n and int(bucket.max()) < d
+
+
+@pytest.mark.gpu
+def test_bucket_hist_kernel_fault_input_on_card(cuda):
+    """Keys and a splitter at (int32 max, int32 max): the histogram counts
+    no padding (the Pallas kernel's [1, 7, -3] against the reference's
+    [1, 4, 0])."""
+    arrays, block = fault_arrays(HIST_FAULT)
+    _, hist = _bucket_hist_on_card(cuda, list(arrays.values()), block)
+    assert hist.tolist() == [1, 4, 0]
+
+
+def _bitonic_on_card(cuda, arrays, tile):
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = bs_mod.bitonic_sort_tiles.launches
+    got = ops.bitonic_sort_tiles(*args, tile=tile)
+    torch.cuda.synchronize()
+    assert bs_mod.bitonic_sort_tiles.launches == before + 1
+    want = ref.bitonic_sort_tiles_ref(*args, tile)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # values: the same multiset within every key group
+    assert torch.equal(sorted_rows(*got), sorted_rows(*want))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,tile", SORT_SHAPES)
+def test_bitonic_sort_kernel_on_card(cuda, n, tile):
+    _bitonic_on_card(cuda, sort_inputs(n, tile), tile)
+
+
+@pytest.mark.gpu
+def test_bitonic_sort_kernel_fault_input_on_card(cuda):
+    """A real (int32 max, int32 max) row in a short tile is kept (the
+    Pallas kernel returns values [8, 7, int32 max], the reference [8, 7, 9])."""
+    arrays, tile = fault_arrays(SORT_FAULT)
+    got = _bitonic_on_card(cuda, list(arrays.values()), tile)
+    assert sorted(got[2].tolist()[1:]) == [7, 9] and got[2].tolist()[0] == 8

@@ -13,13 +13,17 @@ from repro_torch.launch import sa_build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run(module, *args):
+def _stdout(module, *args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-m", module, *args],
                           capture_output=True, text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.splitlines()
+    return proc.stdout.splitlines()
+
+
+def _run(module, *args):
+    lines = _stdout(module, *args)
     count = next(ln.split("suffixes=")[1].split()[0] for ln in lines
                  if "suffixes=" in ln)
     units = [ln for ln in lines if ln.startswith("  ")]
@@ -53,19 +57,19 @@ def test_launcher_matches_repro(flags):
     (["--mode", "terasort"], "11"),
     (["--superblocks", "2", "--merge-algorithm", "kway"], "9b"),
     (["--max-records-per-run", "1000", "--store-retries", "2"], "9b"),
-    (["--index-dir", "ix"], "8"),
-    (["--corpus-file", "corpus.sachunk"], "8"),
+    (["--index-dir", "ix", "--resume"], "9b"),
+    (["--corpus-file", "corpus.sachunk", "--store-retries", "2"], "9b"),
     (["--resume"], "9b"),
-    (["--store-backend", "chunked"], "8"),
+    (["--store-backend", "chunked", "--merge-algorithm", "kway"], "9b"),
     (["--merge-algorithm", "rerank"], "9b"),
-    (["--cache-budget", "65536"], "8"),
+    (["--cache-budget", "65536", "--mode", "doubling"], "11"),
 ], ids=["--mode0", "--mode1", "--superblocks", "--max-records-per-run",
         "--index-dir", "--corpus-file", "--resume", "--store-backend",
         "--merge-algorithm", "--cache-budget"])
 def test_unported_flags_exit_nonzero(flags, item, capsys):
     """Flags of paths not ported yet exit naming their ROADMAP.md item; the
-    out-of-core flags are ported, so those cases pair them with one that
-    is not."""
+    out-of-core, streaming and index flags are ported, so those cases pair
+    them with one that is not."""
     with pytest.raises(SystemExit) as e:
         sa_build.parse_args(flags)
     assert e.value.code != 0
@@ -86,3 +90,97 @@ def test_launcher_config_uses_kernels_on_the_card_only():
     assert sa_build.make_config("base", "cuda").use_pallas
     assert not sa_build.make_config("base", "cpu").use_pallas
     assert sa_build.make_config("bits", "cpu").packing == "bits"
+
+
+def _streaming_lines(lines, index_dir=None):
+    """The launcher's lines beyond ``_run``'s: the corpus-file, streaming
+    and index lines (the index path and the serving module named there
+    replaced), and the stats' index path."""
+    out = []
+    for ln in lines:
+        if ln.startswith(("wrote ", "streaming: ", "index: ")):
+            if index_dir:
+                ln = ln.replace(index_dir, "IX").replace("repro_torch.", "repro.")
+            out.append(ln.split(": ", 1)[1] if ln.startswith("wrote ") else ln)
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--reads", "60", "--read-len", "20", "--superblocks", "3",
+     "--store-backend", "chunked", "--cache-budget", "8000"],
+    ["--text", "600", "--seed", "3", "--max-records-per-run", "200",
+     "--store-backend", "chunked", "--cache-budget", "4096", "--chunk-records", "40"],
+], ids=["reads-streaming", "text-streaming"])
+def test_streaming_flags_match_repro(flags):
+    got = _run("repro_torch.launch.sa_build", "--device", "cpu", *flags)
+    want = _run("repro.launch.sa_build", *flags)
+    assert got == want
+    assert got[3]["store_backend"] == "chunked"
+    assert got[3]["peak_resident_bytes"] <= int(flags[flags.index("--cache-budget") + 1])
+
+
+def test_index_dir_and_corpus_file_match_repro(tmp_path):
+    """``--corpus-file`` (written on first use, then read) and
+    ``--index-dir``: the same printout and the same index files as repro."""
+    outs = {}
+    for module, extra in (("repro.launch.sa_build", []),
+                          ("repro_torch.launch.sa_build", ["--device", "cpu"])):
+        tag = module.split(".")[0]
+        corpus_file = str(tmp_path / f"{tag}.sachunk")
+        ix = str(tmp_path / f"{tag}-ix")
+        flags = ["--reads", "40", "--read-len", "18", "--superblocks", "2",
+                 "--corpus-file", corpus_file, "--index-dir", ix, *extra]
+        first = _stdout(module, *flags)
+        second = _stdout(module, *flags)  # the corpus file exists now
+        assert any(ln.startswith("wrote ") for ln in first)
+        assert not any(ln.startswith("wrote ") for ln in second)
+        outs[tag] = (_streaming_lines(first, ix), _streaming_lines(second, ix),
+                     ix, corpus_file)
+    (g1, g2, gix, gcf), (w1, w2, wix, wcf) = outs["repro_torch"], outs["repro"]
+    assert g1 == w1 and g2 == w2
+    import filecmp
+
+    assert filecmp.cmp(gcf, wcf, shallow=False)
+    for name in ("suffix_array.npy", "lcp.npy"):
+        assert filecmp.cmp(os.path.join(gix, name), os.path.join(wix, name),
+                           shallow=False)
+
+
+def _serve_lines(lines):
+    """The serve printout without its wall times."""
+    out = []
+    for ln in lines:
+        if ln.startswith("opened "):
+            ln = ln.rsplit(" (", 1)[0]
+        elif ln.startswith(("served ", "  per-query latency")):
+            continue
+        out.append(ln)
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--queries", "200", "--batch", "32"],
+    ["--queries", "150", "--batch", "16", "--store-backend", "memory",
+     "--verify", "eager", "--seed", "4", "--hot-fraction", "0.5"],
+    ["--pattern", "1,2,3", "--pattern", "4,4", "--pattern", "2"],
+], ids=["load", "load-memory-eager", "patterns"])
+def test_serve_matches_repro(tmp_path, flags):
+    """``repro_torch.launch.serve`` over an index directory written by
+    repro: the same printout as ``repro.launch.serve`` apart from walls."""
+    ix = str(tmp_path / "ix")
+    _stdout("repro.launch.sa_build", "--reads", "50", "--read-len", "20",
+            "--index-dir", ix)
+    got = _serve_lines(_stdout("repro_torch.launch.serve", "--device", "cpu",
+                               "--index-dir", ix, *flags))
+    want = _serve_lines(_stdout("repro.launch.serve", "--index-dir", ix, *flags))
+    assert got == want and len(got) >= 3
+
+
+def test_serve_refuses_more_than_one_shard(capsys):
+    from repro_torch.launch import serve
+
+    assert serve.parse_args(["--index-dir", "ix", "--shards", "1"]).shards == 1
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(["--index-dir", "ix", "--shards", "2"])
+    assert e.value.code != 0
+    assert "ROADMAP.md item 10" in capsys.readouterr().err

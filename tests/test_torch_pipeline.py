@@ -149,7 +149,7 @@ def test_auto_out_of_core_plans_match_repro(sb):
 
 
 @pytest.mark.parametrize("sb,item", [
-    (SuperblockConfig(write_manifest=True), "8"),
+    (SuperblockConfig(write_manifest=True), "write_manifest needs spill_dir"),
     (SuperblockConfig(num_superblocks=2, merge_algorithm="kway"), "9b"),
     (SuperblockConfig(num_superblocks=2, merge_algorithm="rerank"), "9b"),
     (SuperblockConfig(num_superblocks=2, resume=True), "9b"),
@@ -157,6 +157,16 @@ def test_auto_out_of_core_plans_match_repro(sb):
     (SuperblockConfig(num_superblocks=2, store_retries=2), "9b"),
 ], ids=["manifest", "kway", "rerank", "resume", "sanitize", "store_retries"])
 def test_auto_refuses_out_of_core_plans(sb, item):
+    """Paths not ported raise naming their ROADMAP item; a manifest without
+    a ``spill_dir`` (ported) is refused as ``repro`` refuses it."""
+    if sb.write_manifest:
+        with pytest.raises(ValueError, match=item):
+            build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
+        from repro.core.superblock import build_suffix_array_auto as ref_auto
+
+        with pytest.raises(ValueError, match=item):
+            ref_auto(_reads(), cfg=RefConfig(**K4), sb=sb)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
 

@@ -25,7 +25,10 @@ SLICE_MODULES = [
     "repro_torch.core.superblock",
     "repro_torch.core.pipeline_exec",
     "repro_torch.core.oracle",
+    "repro_torch.core.integrity",
+    "repro_torch.core.index_io",
     "repro_torch.data.corpus",
+    "repro_torch.data.chunk_store",
     "repro_torch.kernels",
     "repro_torch.kernels.ref",
     "repro_torch.kernels.cases",
@@ -35,7 +38,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.window_gather",
     "repro_torch.kernels.pattern_cmp",
     "repro_torch.kernels.merge_path",
+    "repro_torch.kernels.bucket_hist",
+    "repro_torch.kernels.bitonic_sort",
     "repro_torch.launch.sa_build",
+    "repro_torch.launch.serve",
     "repro_torch.serve",
     "repro_torch.serve.sa_engine",
 ]

@@ -202,20 +202,38 @@ def test_index_defaults_to_the_card():
     ("sanitize", 9), ("superblocks", 9), ("resume", 9), ("store_retries", 9),
 ])
 def test_unported_paths_raise(call, item, tmp_path, monkeypatch):
+    """Paths of ROADMAP item 9b raise naming it.  Item 8 (persistence) is
+    ported: its calls now do what ``repro``'s do on the same input: opening
+    a directory with no manifest and building from a missing corpus file
+    raise ``FileNotFoundError``; ``save`` and ``build(index_dir=...)``
+    write a directory that reopens with the same answers."""
     reads = np.random.default_rng(0).integers(1, 5, size=(12, 6)).astype(np.int32)
     cfg = SAConfig(vocab_size=4)
     build = lambda corpus=reads, **kw: SuffixArrayIndex.build(  # noqa: E731
         corpus, cfg=cfg, device="cpu", **kw)
+    if item == 8:
+        pats = [reads[2, 1:4], reads[5, :3], np.array([4, 4], np.int64)]
+        want = ref_engine.SuffixArrayIndex.build(reads, cfg=RefConfig(vocab_size=4))
+        if call in ("open", "path corpus"):
+            with pytest.raises(FileNotFoundError):
+                ref_engine.SuffixArrayIndex.build(
+                    str(tmp_path / "corpus.sachunk"), cfg=RefConfig(vocab_size=4))
+            with pytest.raises(FileNotFoundError):
+                if call == "open":
+                    SuffixArrayIndex.open(str(tmp_path), device="cpu")
+                else:
+                    build(corpus=str(tmp_path / "corpus.sachunk"))
+            return
+        ix = str(tmp_path / "ix")
+        if call == "save":
+            build().save(ix)
+        else:
+            build(index_dir=ix).close()
+        with SuffixArrayIndex.open(ix, device="cpu") as idx:
+            assert idx.align(pats) == want.align(pats)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if call == "open":
-            SuffixArrayIndex.open(str(tmp_path))
-        elif call == "save":
-            build().save(str(tmp_path))
-        elif call == "index_dir":
-            build(index_dir=str(tmp_path))
-        elif call == "path corpus":
-            build(corpus=str(tmp_path / "corpus.sachunk"))
-        elif call == "sanitize":
+        if call == "sanitize":
             monkeypatch.setenv("REPRO_SANITIZE", "1")
             build()
         elif call == "superblocks":

@@ -2,6 +2,7 @@
 the superblock plan, the merge's store calls, the exact comparisons against
 the store, the text-mode risk split and the device refiner.  Both packages
 get the same numpy inputs; answers and every traffic counter must match."""
+import os
 import warnings
 
 import numpy as np
@@ -102,8 +103,23 @@ def test_corpus_shape_of_array_and_backend():
     assert superblock.corpus_shape_of(reads) == (30, 10)
     assert superblock.corpus_shape_of(backend) == (30, 10)
     assert superblock.corpus_shape_of(_text()) == (300,)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        superblock.corpus_shape_of("corpus.sachunk")
+    # a chunked corpus file reports its header's geometry, as in repro; a
+    # missing file raises as repro's does
+    import tempfile
+
+    from repro.core.superblock import corpus_shape_of as ref_shape_of
+    from repro_torch.data.chunk_store import write_chunked_corpus
+
+    with tempfile.TemporaryDirectory() as d:
+        for corpus in (reads, _text()):
+            path = os.path.join(d, f"c{corpus.ndim}.sachunk")
+            write_chunked_corpus(corpus, path, chunk_items=7)
+            assert superblock.corpus_shape_of(path) == corpus.shape == ref_shape_of(path)
+        missing = os.path.join(d, "corpus.sachunk")
+        with pytest.raises(FileNotFoundError):
+            ref_shape_of(missing)
+        with pytest.raises(FileNotFoundError):
+            superblock.corpus_shape_of(missing)
 
 
 # ---------------------------------------------------------------------------
