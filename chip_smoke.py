@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stream-reads 5000 12000  # phase 9's streaming build only
+    python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -11,11 +12,15 @@ each of which fails loudly:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel to its plain PyTorch version on the card with
    ``torch.equal``, at the kernel-test shapes (``pattern_cmp``'s and
-   ``merge_path_ranks``' edge rows and the int32-max fault inputs of
-   ``bucket_hist`` and ``bitonic_sort_tiles`` included) and at the
-   full-size shapes of phases 5 and 7 (for the last two: 2^26 Map records
-   of the text cell, D = 512, tiles of 1024), and time both, and for the
-   last two the nearest composition of PyTorch calls;
+   ``merge_path_ranks``' edge rows, ``merge_path_ranks``' tiles of sorted
+   runs, ``bucket_hist``'s edge splitters (keys at offsets 0 and 1), and the
+   int32-max fault inputs of ``bucket_hist`` and ``bitonic_sort_tiles``
+   included) and at the full-size shapes of phases 5 and 7 (for the last
+   two: 2^26 Map records of the text cell, D = 512, tiles of 1024), and
+   time both, and for the last two the nearest composition of PyTorch
+   calls; ``merge_path_ranks`` also on full synthetic tiles (C = 4 x 4096,
+   W = 4 and 23), random and as 4 sorted runs, timed beside
+   ``torch.unique``'s inverse index (the same ranks on unique rows);
 4. small end-to-end builds on the card (kernels on) against the numpy oracle,
    and small ``SuffixArrayIndex`` builds whose count/locate/align answers
    are held to brute force;
@@ -50,7 +55,8 @@ each of which fails loudly:
    ``merge_path`` must launch on the kernel path and not on the plain one.
    A smaller kernel-path reads build is profiled, and its largest and
    widest merge tiles (full tiles: 4 runs x 4096 heads) are held to the
-   plain ranks and timed;
+   plain ranks (a permutation) and timed beside ``torch.unique``, with
+   their run count R and the bound it gives;
 9. persistence: right after phase 7, its reads index is saved (SA, LCP,
    corpus, manifest), reopened with ``verify="eager"`` on the chunked
    store (a 1 GiB cache) and on the memory store, and phase 7's seed
@@ -197,6 +203,10 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                    for c, w, block in cases.MERGE_SHAPES]
     merge_cases += [(f"edge {name}", cases.merge_edge_inputs(name), 256)
                     for name in cases.MERGE_EDGE]
+    merge_cases += [(f"{r} sorted runs block={block}", cases.merge_runs_inputs(r), block)
+                    for r in cases.MERGE_RUNS for block in (256, 40)]
+    merge_cases += [(f"runs {name}", cases.merge_run_edge_inputs(name), 256)
+                    for name in cases.MERGE_RUN_EDGE]
     for name, keys, block in merge_cases:
         keys = torch.from_numpy(keys).to(dev)
         check_equal(f"merge_path_ranks {name}",
@@ -206,8 +216,13 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                   for n, d in cases.HIST_SHAPES]
     arrays, block = cases.fault_arrays(cases.HIST_FAULT)
     hist_cases.append(("int32-max fault input", list(arrays.values()), block))
-    for name, arrays, block in hist_cases:
+    hist_cases += [(f"edge {name} at key offset {off}", cases.hist_edge_inputs(name),
+                    cases.HIST_BLOCK, off)
+                   for name in cases.HIST_EDGE for off in (0, 1)]
+    for name, arrays, block, *off in hist_cases:
         args = [torch.from_numpy(a).to(dev) for a in arrays]
+        if off:  # keys as views one key into their storage
+            args[:2] = [a[off[0]:] for a in args[:2]]
         check_bucket_hist(f"bucket_hist {name}",
                           bh_mod.bucket_hist(*args, block=block),
                           ref.bucket_hist_ref(*args))
@@ -221,7 +236,8 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                            bs_mod.bitonic_sort_tiles(*args, tile=tile),
                            ref.bitonic_sort_tiles_ref(*args, tile))
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes, "
-        "the edge rows of pattern_cmp and merge_path_ranks and the int32-max "
+        "the edge rows of pattern_cmp and merge_path_ranks, merge_path_ranks' "
+        "tiles of sorted runs, bucket_hist's edge splitters and the int32-max "
         "fault inputs of bucket_hist and bitonic_sort_tiles")
 
     out = {}
@@ -307,17 +323,22 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         f"{out['pattern_cmp']['ms']:.4f} ms a call, host launch path included")
     # merge_path_ranks at the merge's full tile, C = 4 x 4096: four words (the
     # depth-0 key words and the index words) and the widest row a reads
-    # merge can build (every window level, the tie column, the index words)
+    # merge can build (every window level, the tie column, the index words);
+    # rows in random order, and as the merge builds them, 4 sorted runs
     wide = (-(-(FULL_READ_LEN + 1) // k) + 2) * cfg.key_words + 3
-    for w in (4, wide):
-        keys = torch.from_numpy(merge_tile_keys(MERGE_C, w)).to(dev)
-        got = mp_mod.merge_path_ranks(keys)
-        check_equal(f"merge_path_ranks C={MERGE_C} W={w}", got,
-                    ref.merge_path_ranks_ref(keys))
-        m = merge_path_timing(keys)
-        log(f"phase 3: merge_path_ranks synthetic tile C={MERGE_C} W={w}: kernel "
-            f"{m['ms']:.4f} ms (device {m['device_ms']:.4f} ms a launch), plain "
-            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+    for runs in (None, OOC_SUPERBLOCKS):
+        for w in (4, wide):
+            keys = torch.from_numpy(merge_tile_keys(MERGE_C, w, runs)).to(dev)
+            got = mp_mod.merge_path_ranks(keys)
+            check_equal(f"merge_path_ranks C={MERGE_C} W={w} runs={runs}", got,
+                        ref.merge_path_ranks_ref(keys))
+            m = merge_path_timing(keys)
+            log(f"phase 3: merge_path_ranks synthetic tile C={MERGE_C} W={w}, "
+                f"{'random rows' if runs is None else f'{runs} sorted runs'} "
+                f"(R = {m['runs']}): kernel {m['ms']:.4f} ms (device "
+                f"{m['device_ms']:.4f} ms a call), plain {m['plain_ms']:.4f} ms, "
+                f"library {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                f"({m['bound_by']})")
     for name, o in out.items():
         lib = (f", library {o['library_ms']:.4f} ms ({o['library']})"
                if "library" in o else "")
@@ -417,11 +438,12 @@ def sort_kernels_full_size(records):
     return out
 
 
-def merge_tile_keys(c, w):
+def merge_tile_keys(c, w, runs=None):
     """A synthetic merge tile of ``c`` rows and ``w`` words: about 16 rows
     share each leading word and the next words tie often, as neighbouring
     suffixes of a real tile do; the last two are the index words (unique).
-    Seeded by ``c + w``."""
+    Rows in random order, or cut into ``runs`` equal runs, each sorted, as
+    the merge concatenates its runs' frontiers.  Seeded by ``c + w``."""
     import numpy as np
 
     rng = np.random.default_rng(c + w)
@@ -429,33 +451,60 @@ def merge_tile_keys(c, w):
     keys[:, 0] = rng.integers(0, max(1, c // 16), size=c)  # ~16 rows a value
     keys[:, 1 : w - 2] = rng.integers(0, 3, size=(c, w - 3))
     keys[:, w - 1] = rng.permutation(c)  # index words: hi 0, lo unique
+    if runs:
+        keys = np.concatenate([run[np.lexsort(run.T[::-1])]
+                               for run in np.split(keys, runs)])
     return keys
 
 
-def merge_path_bound(c, w):
-    """(bound ms, by): C·W·4 bytes read and C·4 written against 2·C² int32
-    operations (every pair is compared on word 0)."""
-    return byte_or_op_bound(4 * c * w + 4 * c, 2 * c * c)
+def merge_path_bound(c, w, runs):
+    """(bound ms, by) of ranking a tile of ``runs`` sorted runs: C·W·4 bytes
+    read and C·4 written against the C·ceil(log2 R) word-0 compares that
+    locating every row in the other runs needs at least."""
+    return byte_or_op_bound(4 * c * w + 4 * c, c * (runs - 1).bit_length())
 
 
-def merge_path_timing(keys, device_time=True):
-    """Kernel (CUDA events and, with ``device_time``, the profiler's device
-    time) and plain times of ``merge_path_ranks`` on ``keys``, with its
-    bound."""
+def merge_path_library(keys):
+    """``torch.unique``'s inverse index of the rows: the rank of every row
+    among the distinct rows, so the ranks on a tile of unique rows."""
+    import torch
+
+    return torch.unique(keys, dim=0, return_inverse=True)[1]
+
+
+def merge_path_timing(keys):
+    """Kernel (CUDA events, and the profiler's device time of a call's three
+    launches), plain and library times of
+    ``merge_path_ranks`` on ``keys`` (unique rows: the library's ranks are
+    checked against the plain ones), with its run count and bound."""
+    import torch
+
     from repro_torch.kernels import merge_path as mp_mod
     from repro_torch.kernels import ref
+    from repro_torch.kernels.cases import merge_runs
 
     c, w = keys.shape
-    bound_ms, bound_by = merge_path_bound(c, w)
+    runs = merge_runs(keys.cpu().numpy())
+    bound_ms, bound_by = merge_path_bound(c, w, runs)
+    check_equal(f"torch.unique ranks of a {tuple(keys.shape)} tile",
+                merge_path_library(keys).to(torch.int32), ref.merge_path_ranks_ref(keys))
     out = dict(ms=time_ms(lambda: mp_mod.merge_path_ranks(keys), 20),
                plain_ms=time_ms(lambda: ref.merge_path_ranks_ref(keys), 3),
-               bound_ms=bound_ms, bound_by=bound_by)
-    if device_time:
-        _, dev_ms, launches = profiled(
-            lambda: [mp_mod.merge_path_ranks(keys) for _ in range(20)])
-        key = next(key for key in dev_ms if "merge_path" in key)
-        out["device_ms"] = dev_ms[key] / launches[key]
-    return out
+               library_ms=time_ms(lambda: merge_path_library(keys), 20),
+               library="torch.unique(keys, dim=0, return_inverse=True)",
+               bound_ms=bound_ms, bound_by=bound_by, runs=runs)
+    # a profiler session right after a long one can come back without
+    # device activity: take the first of three that has some
+    calls = 20
+    for _ in range(3):
+        _, dev_ms, _ = profiled(
+            lambda: [mp_mod.merge_path_ranks(keys) for _ in range(calls)])
+        device_ms = sum(t for key, t in dev_ms.items() if "merge_path" in key)
+        if device_ms > 0:
+            out["device_ms"] = device_ms / calls
+            return out
+    raise AssertionError("merge_path_ranks: three profiler sessions recorded "
+                         "no device time")
 
 
 def phase_small_builds(dev):
@@ -1181,15 +1230,14 @@ def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
         if not torch.equal(torch.sort(got.long()).values,
                            torch.arange(keys.shape[0], device=keys.device)):
             raise AssertionError(f"{kind} tile's ranks are not a permutation")
-        # CUDA events only: a launch takes over a millisecond, so the host
-        # launch path is noise here, and phase 3 reads the profiler's
-        # device time at the same C
-        m = merge_path_timing(keys, device_time=False)
+        m = merge_path_timing(keys)
         m.update(max_abs_err=max_abs_err(got, want), shape=tuple(keys.shape))
         tile_report[kind] = m
         log(f"phase 8: merge_path_ranks on the {kind} tile of the reads merge "
-            f"(C, W) = {tuple(keys.shape)}: kernel == plain, ranks a permutation; "
-            f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+            f"(C, W) = {tuple(keys.shape)}, R = {m['runs']}: kernel == plain, "
+            f"ranks a permutation; kernel {m['ms']:.4f} ms (device "
+            f"{m['device_ms']:.4f} ms a call), plain "
+            f"{m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
     ooc_ref = (ooc_reads, want_sa[READS_OOC], want_lcp[READS_OOC])
     return counts, report, tile_report, ooc_ref
@@ -1336,10 +1384,49 @@ def phase_streaming(dev, ooc_ref, reads=STREAM_READS):
     return counts
 
 
+AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
+            "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
+
+
+def merge_ab(parent, pairs):
+    """Phase 8's reads cell (no LCP) through ``repro_torch.launch.sa_build``,
+    from the checkout at ``parent`` and from this one, in turns (parent,
+    change, change, parent, ...), ``pairs`` runs of each, each tree's
+    kernels built first: every run's wall and ``t_merge_s``, each tree's
+    median and quartiles, and the pairs the change wins."""
+    import re
+    import statistics
+
+    trees = {"parent": os.path.abspath(parent), "change": HERE}
+
+    def run(tree, *args):
+        env = dict(os.environ, PYTHONPATH=os.path.join(trees[tree], "src"))
+        return subprocess.run([sys.executable, *args], cwd=trees[tree], env=env,
+                              capture_output=True, text=True, check=True).stdout
+
+    run("parent", "-c", "from repro_torch.kernels import _build; _build.build()")
+    walls = {tree: [] for tree in trees}
+    for i in range(pairs):
+        for tree in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
+            out = run(tree, *AB_BUILD)
+            wall = float(re.search(r" time=([0-9.]+)s", out).group(1))
+            merge = float(re.search(r"'t_merge_s': ([0-9.]+)", out).group(1))
+            walls[tree].append((wall, merge))
+            log(f"merge A/B: run {i} {tree}: wall {wall:.2f} s, t_merge_s {merge:.2f}")
+    for j, what in enumerate(("wall", "t_merge_s")):
+        for tree, runs in walls.items():
+            q1, q2, q3 = statistics.quantiles([r[j] for r in runs], n=4)
+            log(f"merge A/B: {tree} {what} over {len(runs)} runs: median "
+                f"{q2:.3f} s, quartiles {q1:.3f} / {q3:.3f} s")
+        wins = sum(c[j] < p[j] for p, c in zip(walls["parent"], walls["change"]))
+        log(f"merge A/B: the change's {what} is lower in {wins} of {pairs} pairs")
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--stream-reads N [N ...]``: phases 1-2
     and then only phase 9's streaming build, once for each read count (a
-    scaling run; it prints no result line)."""
+    scaling run).  ``--merge-ab PARENT PAIRS``: phases 1-2 and then
+    ``merge_ab``.  Neither prints a result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1371,6 +1458,10 @@ def main(argv) -> int:
     if argv[:1] == ["--stream-reads"]:
         for reads in map(int, argv[1:]):
             phase_streaming(dev, None, reads)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if argv[:1] == ["--merge-ab"] and len(argv) == 3:
+        merge_ab(argv[1], int(argv[2]))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if argv:
@@ -1437,7 +1528,8 @@ def main(argv) -> int:
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": kern[k].get("library_ms"),
-         **({"library": kern[k]["library"], "note": no_path[k]} if k in no_path else {})}
+         **({"library": kern[k]["library"]} if "library" in kern[k] else {}),
+         **({"note": no_path[k]} if k in no_path else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

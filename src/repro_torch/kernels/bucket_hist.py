@@ -6,12 +6,15 @@ the two-word int32 key, so equal keys land in one bucket; the histogram
 counts the N keys per bucket.  ``kernels.ref.bucket_hist_ref`` is the plain
 version.  Source: ``csrc/bucket_hist.cu``.
 
-Bound: bytes (8N read, 4N + 4D written).  One thread a key compares it with
-every splitter held in shared memory as one order-preserving int64; a
-per-CTA shared histogram takes the atomics.  The tail is bounds-checked,
-not padded, so the histogram equals ``bucket_hist_ref`` for every input
-(the TPU kernel's padding lands in the wrong bucket once a splitter equals
-(int32 max, int32 max)).  ``block`` keeps the JAX signature and default:
+Bound: bytes (8N read, 4N + 4D written).  Every CTA sorts the splitters,
+folded to order-preserving int64s, in shared memory with a bitonic network
+(the count below a key does not depend on their order, so any splitters
+are taken) and lays them out as a breadth-first search tree, whose top
+levels fall in distinct banks; a key then takes log2(D) branchless steps
+down it, and a shared atomic into a per-CTA histogram.  The tail is
+bounds-checked, not padded, so the histogram equals ``bucket_hist_ref`` for
+every input (the TPU kernel's padding lands in the wrong bucket once a
+splitter equals (int32 max, int32 max)).  ``block`` keeps the JAX signature and default:
 here it is the CTA's thread count (at most 1024).
 """
 from __future__ import annotations
@@ -24,7 +27,8 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_void_p)
-# most splitters the kernel takes: they and the histogram share 48 KB
+# most splitters the kernel takes: padded to 4096, sorted and as a tree,
+# they fill 64 KB of shared memory
 MAX_SPLITTERS = 4095
 
 

@@ -23,8 +23,14 @@ CMP_SHAPES = [(1, 4, 8), (100, 8, 32), (700, 6, 256)]  # (n, k, block)
 CMP_EDGE_K = (6, 40)  # window widths of the edge-row cases
 MERGE_SHAPES = [(5, 2, 8), (100, 4, 32), (700, 3, 256), (256, 6, 128)]  # (c, w, block)
 MERGE_EDGE = ("duplicates", "w1", "w64", "c1", "ragged", "negative", "int32-max")
+# merge tiles built as sorted runs, as the merge builds them: R runs (20
+# fills a warp with one row's searches, 33 is past that branch), and edge
+# tiles
+MERGE_RUNS = (1, 2, 4, 8, 20, 33)
+MERGE_RUN_EDGE = ("c-1-runs", "deep-ties", "equal-across-runs", "ragged-runs")
 HIST_SHAPES = [(100, 4), (2048, 64), (999, 256), (7, 2)]  # (n, d)
 HIST_BLOCK = 256
+HIST_EDGE = ("unsorted", "repeated", "d1", "max-splitters", "one-hot")
 SORT_SHAPES = [(16, 16), (100, 64), (1024, 256), (5, 8)]  # (n, tile)
 INT32_MAX = int(np.iinfo(np.int32).max)
 # the smallest inputs on which the Pallas kernels differ from
@@ -136,6 +142,84 @@ def merge_edge_inputs(name: str) -> np.ndarray:
     return keys.astype(np.int32)
 
 
+def merge_runs(keys: np.ndarray) -> int:
+    """The number of runs of a key matrix: row i starts one when i = 0 or
+    row i is lexicographically below row i-1 (the kernel's rule)."""
+    if keys.shape[0] == 0:
+        return 0
+    a, b = keys[1:].astype(np.int64), keys[:-1].astype(np.int64)
+    diff = a != b
+    first = np.argmax(diff, axis=1)  # first differing word (0 if none)
+    rows = np.arange(a.shape[0])
+    below = diff.any(axis=1) & (a[rows, first] < b[rows, first])
+    return 1 + int(below.sum())
+
+
+def _sorted_runs(rows: np.ndarray, lengths) -> np.ndarray:
+    """``rows`` cut into consecutive runs of ``lengths``, each sorted."""
+    out, at = [], 0
+    for n in lengths:
+        run = rows[at : at + n]
+        out.append(run[np.lexsort(run.T[::-1])])
+        at += n
+    return np.concatenate(out).astype(np.int32)
+
+
+def merge_runs_inputs(r: int) -> np.ndarray:
+    """A merge tile of ``r`` sorted runs of uneven length (about 150 rows
+    each, 40 for r = 33): heavy ties in words 0..2, a zero index-high word
+    and a permutation in the last word (unique rows).  Seeded by ``r``."""
+    rng = np.random.default_rng(3000 + r)
+    per = 40 if r > 8 else 150
+    lengths = rng.integers(per // 2, per * 3 // 2, size=r)
+    c = int(lengths.sum())
+    rows = np.zeros((c, 5), np.int64)
+    rows[:, :3] = rng.integers(0, 4, size=(c, 3))
+    rows[:, 4] = rng.permutation(c)
+    keys = _sorted_runs(rows, lengths)
+    assert merge_runs(keys) == r
+    return keys
+
+
+def merge_run_edge_inputs(name: str) -> np.ndarray:
+    """Tiles of sorted runs at their edges:
+
+    - c-1-runs: 300 rows, descending but for one ascending pair (299 runs,
+      the kernel's many-runs branch);
+    - deep-ties: 4 runs whose rows tie on words 0..8 across runs, as the
+      neighbouring suffixes of a real reads tile do (W = 12);
+    - equal-across-runs: 3 runs drawn from a pool of 20 rows, so equal rows
+      sit within and across runs (duplicates: ranks count strictly less);
+    - ragged-runs: C = 1001 in runs of 1, 2, 37, 500 and 461 rows.
+    """
+    rng = np.random.default_rng(4000 + MERGE_RUN_EDGE.index(name))
+    if name == "c-1-runs":
+        rows = rng.permutation(300)[:, None] * np.array([1, 0, 1]) + np.array([0, 7, 0])
+        keys = rows[np.lexsort(rows.T[::-1])][::-1].astype(np.int32)
+        keys[[0, 1]] = keys[[1, 0]]
+        runs = 299
+    elif name == "deep-ties":
+        lengths = (200, 180, 220, 190)
+        rows = np.full((sum(lengths), 12), 1234567, np.int64)
+        rows[:, 9:11] = rng.integers(0, 3, size=(sum(lengths), 2))
+        rows[:, 10] -= 1  # a negative word among them
+        rows[:, 11] = rng.permutation(sum(lengths))
+        keys, runs = _sorted_runs(rows, lengths), len(lengths)
+    elif name == "equal-across-runs":
+        pool = rng.integers(-2, 3, size=(20, 3))
+        lengths = (100, 90, 110)
+        keys = _sorted_runs(pool[rng.integers(0, 20, size=sum(lengths))], lengths)
+        runs = len(lengths)
+    else:
+        lengths = (1, 2, 37, 500, 461)
+        rows = np.zeros((sum(lengths), 4), np.int64)
+        rows[:, :2] = rng.integers(0, 5, size=(sum(lengths), 2))
+        rows[:, 3] = rng.permutation(sum(lengths))
+        rows[0, :2] = 9  # the one-row run lies above the next run's first row
+        keys, runs = _sorted_runs(rows, lengths), len(lengths)
+    assert merge_runs(keys) == runs
+    return keys
+
 
 def hist_inputs(n: int, d: int):
     """key_hi, key_lo (n,) and split_hi, split_lo (d-1,) int32 as
@@ -147,6 +231,36 @@ def hist_inputs(n: int, d: int):
     sh = np.sort(rng.integers(0, 1 << 20, size=(d - 1,))).astype(np.int32)
     sl = rng.integers(0, 1 << 20, size=(d - 1,)).astype(np.int32)
     return kh, kl, sh, sl
+
+
+def hist_edge_inputs(name: str):
+    """key_hi, key_lo (n,) and split_hi, split_lo (d-1,) int32 beyond the
+    sorted splitters of ``hist_inputs`` (the kernels take any splitters):
+
+    - unsorted: 63 splitters in random order;
+    - repeated: 31 splitters drawn from 5 values, keys on them too;
+    - d1: no splitter (D = 1), every key in bucket 0;
+    - max-splitters: ``MAX_SPLITTERS`` splitters (D = 4096);
+    - one-hot: every key equal, so one bucket holds them all.
+
+    n is odd throughout (no multiple of 4).  Seeded by the case."""
+    from repro_torch.kernels.bucket_hist import MAX_SPLITTERS
+
+    rng = np.random.default_rng(5000 + HIST_EDGE.index(name))
+    n, d = {"unsorted": (1001, 64), "repeated": (999, 32), "d1": (101, 1),
+            "max-splitters": (5003, MAX_SPLITTERS + 1), "one-hot": (3001, 16)}[name]
+    kh = rng.integers(-(1 << 20), 1 << 20, size=(n,))
+    kl = rng.integers(-(1 << 20), 1 << 20, size=(n,))
+    sh = rng.integers(-(1 << 20), 1 << 20, size=(d - 1,))
+    sl = rng.integers(-(1 << 20), 1 << 20, size=(d - 1,))
+    if name == "repeated":
+        vals = rng.integers(-3, 3, size=(5, 2))
+        sh, sl = vals[rng.integers(0, 5, size=d - 1)].T
+        kh, kl = vals[rng.integers(0, 5, size=n)].T
+        kl = kl + rng.integers(-1, 2, size=n)  # on, just below and above them
+    if name == "one-hot":
+        kh, kl = np.full(n, sh[3]), np.full(n, sl[3] + 1)
+    return tuple(np.ascontiguousarray(a, dtype=np.int32) for a in (kh, kl, sh, sl))
 
 
 def sort_inputs(n: int, tile: int):

@@ -22,10 +22,11 @@ from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels import cases
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_FAULT, HIST_SHAPES,
-    PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES,
-    cmp_edge_inputs, cmp_inputs, fault_arrays, gather_inputs, hist_inputs,
-    pack_tokens, sort_inputs, sorted_rows)
+    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
+    HIST_SHAPES, MERGE_RUN_EDGE, MERGE_RUNS, PACK_BLOCK, PACK_CFGS, PACK_IDS,
+    PACK_LENGTHS, SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs,
+    fault_arrays, gather_inputs, hist_edge_inputs, hist_inputs, merge_run_edge_inputs,
+    merge_runs, merge_runs_inputs, pack_tokens, sort_inputs, sorted_rows)
 
 
 @pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
@@ -150,6 +151,30 @@ def test_bitonic_sort_tiles_ref_matches_repro(n, tile):
             sorted_rows(*got), sorted_rows(*(torch.from_numpy(np.array(x)) for x in want)))
 
 
+@pytest.mark.parametrize("name", HIST_EDGE)
+def test_bucket_hist_edge_inputs_match_repro(name):
+    """Unsorted and repeated splitters, none (D = 1), ``MAX_SPLITTERS``, one
+    hot bucket: the plain version equals ``repro.kernels.ref`` and the
+    Pallas kernel (interpret mode), which fails on D = 1 (ROADMAP.md
+    section 3)."""
+    arrays = hist_edge_inputs(name)
+    before = launch_counts()
+    got = ops.bucket_hist(*map(torch.from_numpy, arrays), block=HIST_BLOCK)
+    assert launch_counts() == before
+    jargs = tuple(map(jnp.asarray, arrays))
+    for g, w in zip(got, jref.bucket_hist_ref(*jargs), strict=True):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[1].sum()) == arrays[0].shape[0]
+    if name == "d1":
+        assert got[1].tolist() == [arrays[0].shape[0]]
+        with pytest.raises(ZeroDivisionError):
+            ref_ops.bucket_hist(*jargs, block=HIST_BLOCK)
+        return
+    for g, w in zip(got, ref_ops.bucket_hist(*jargs, block=HIST_BLOCK), strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_bucket_hist_ref_at_the_int32_max_fault_input():
     """Keys and a splitter at (int32 max, int32 max): the plain version
     equals ``repro.kernels.ref``; the Pallas kernel's padding lands in the
@@ -195,6 +220,48 @@ def test_pattern_cmp_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pc_mod.pattern_cmp(x, x, x[0, :2], x[0, :2])
     assert pc_mod.pattern_cmp.launches == before
+
+
+def _merge_ranks_match_repro(keys, block=256):
+    """The plain ranks of ``keys`` (no launch) against ``repro.kernels.ref``
+    and the Pallas kernel (interpret mode)."""
+    before = launch_counts()
+    got = ops.merge_path_ranks(torch.from_numpy(keys), block=block)
+    assert launch_counts() == before
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.merge_path_ranks_ref(jnp.asarray(keys))))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref_ops.merge_path_ranks(jnp.asarray(keys), block=block)))
+    return got.numpy()
+
+
+@pytest.mark.parametrize("r", MERGE_RUNS)
+def test_merge_path_sorted_runs_match_repro(r):
+    """Tiles of R sorted runs with unique rows, as the merge builds them
+    (``merge_runs_inputs`` checks it made R runs): ranks a permutation."""
+    keys = merge_runs_inputs(r)
+    got = _merge_ranks_match_repro(keys)
+    assert sorted(got.tolist()) == list(range(keys.shape[0]))
+
+
+@pytest.mark.parametrize("name", MERGE_RUN_EDGE)
+def test_merge_path_run_edges_match_repro(name):
+    """C-1 runs, runs tied on their first 9 words, equal rows across runs,
+    ragged run lengths: strictly-less counts, also by brute force."""
+    keys = merge_run_edge_inputs(name)
+    got = _merge_ranks_match_repro(keys, block=128)
+    rows = [tuple(r) for r in keys.tolist()]
+    np.testing.assert_array_equal(got, [sum(o < row for o in rows) for row in rows])
+
+
+def test_merge_runs_counts_descents():
+    """``merge_runs``: one run a sorted tile, a new one at every row below
+    its predecessor, equal neighbours in one run."""
+    keys = np.array([[1, 2], [1, 2], [1, 3], [0, 9], [0, 9], [5, 0], [4, 9]], np.int32)
+    assert merge_runs(keys) == 3
+    assert merge_runs(keys[:3]) == 1
+    assert merge_runs(keys[:0]) == 0
+    assert merge_runs(np.array([[-1], [-2], [-3]], np.int32)) == 3
 
 
 def test_merge_path_wrapper_refuses_cpu_tensors():

@@ -19,11 +19,12 @@ from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_FAULT, HIST_SHAPES,
-    MERGE_EDGE, MERGE_SHAPES, PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS,
-    SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs, fault_arrays,
-    gather_inputs, hist_inputs, merge_edge_inputs, merge_inputs, pack_tokens,
-    sort_inputs, sorted_rows)
+    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
+    HIST_SHAPES, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
+    PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES,
+    cmp_edge_inputs, cmp_inputs, fault_arrays, gather_inputs, hist_edge_inputs,
+    hist_inputs, merge_edge_inputs, merge_inputs, merge_run_edge_inputs,
+    merge_runs_inputs, pack_tokens, sort_inputs, sorted_rows)
 
 
 @pytest.fixture
@@ -129,6 +130,23 @@ def test_merge_path_kernel_edge_rows_on_card(cuda, name):
     _merge_path_on_card(cuda, merge_edge_inputs(name), 256)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", MERGE_RUNS)
+@pytest.mark.parametrize("block", [256, 40])
+def test_merge_path_kernel_sorted_runs_on_card(cuda, r, block):
+    """Tiles of R sorted runs, as the merge builds them: one warp a row's
+    searches (R <= 32) or atomics past that; ranks a permutation."""
+    got = _merge_path_on_card(cuda, merge_runs_inputs(r), block)
+    assert torch.equal(torch.sort(got).values,
+                       torch.arange(got.shape[0], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MERGE_RUN_EDGE)
+def test_merge_path_kernel_run_edges_on_card(cuda, name):
+    _merge_path_on_card(cuda, merge_run_edge_inputs(name), 256)
+
+
 def _out_of_core_on_card(cuda, corpus, oracle):
     import numpy as np
 
@@ -198,6 +216,24 @@ def test_bucket_hist_kernel_fault_input_on_card(cuda):
     arrays, block = fault_arrays(HIST_FAULT)
     _, hist = _bucket_hist_on_card(cuda, list(arrays.values()), block)
     assert hist.tolist() == [1, 4, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", HIST_EDGE)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bucket_hist_kernel_edge_inputs_on_card(cuda, name, offset):
+    """Unsorted, repeated, no and the most splitters, one hot bucket; at
+    offset 1 the keys are views that start one key into their storage."""
+    arrays = hist_edge_inputs(name)
+    kh, kl = (torch.from_numpy(a).to(cuda)[offset:] for a in arrays[:2])
+    sh, sl = (torch.from_numpy(a).to(cuda) for a in arrays[2:])
+    before = bh_mod.bucket_hist.launches
+    got = ops.bucket_hist(kh, kl, sh, sl, block=HIST_BLOCK)
+    torch.cuda.synchronize()
+    assert bh_mod.bucket_hist.launches == before + 1
+    for g, w in zip(got, ref.bucket_hist_ref(kh, kl, sh, sl), strict=True):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) == kh.shape[0]
 
 
 def _bitonic_on_card(cuda, arrays, tile):
