@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --stream-reads 5000 12000  # phase 9's streaming build only
     python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
+    python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -15,10 +16,13 @@ each of which fails loudly:
    ``merge_path_ranks``' edge rows, ``merge_path_ranks``' tiles of sorted
    runs, ``bucket_hist``'s edge splitters (keys at offsets 0 and 1), and the
    int32-max fault inputs of ``bucket_hist`` and ``bitonic_sort_tiles``
-   included) and at the full-size shapes of phases 5 and 7 (for the last
-   two: 2^26 Map records of the text cell, D = 512, tiles of 1024), and
-   time both, and for the last two the nearest composition of PyTorch
-   calls; ``merge_path_ranks`` also on full synthetic tiles (C = 4 x 4096,
+   included, and ``window_gather``'s edge cases: ragged tiles, k = 1, 40,
+   100 and 1000, rows and offsets out of range, R·L = 0 and corpus views whose
+   base is not 16-byte aligned) and at the full-size shapes of phases 5 and
+   7 (for the last two: 2^26 Map records of the text cell, D = 512, tiles
+   of 1024), and time both, and for the last two the nearest composition of
+   PyTorch calls; ``window_gather`` also at 2^14 requests (about a
+   device-merge tile's); ``merge_path_ranks`` also on full synthetic tiles (C = 4 x 4096,
    W = 4 and 23), random and as 4 sorted runs, timed beside
    ``torch.unique``'s inverse index (the same ranks on unique rows);
 4. small end-to-end builds on the card (kernels on) against the numpy oracle,
@@ -94,6 +98,7 @@ PEAK_INT32_OPS_PER_S = 33.5e12
 FULL_READS, FULL_READ_LEN = 1_000_000, 200
 FULL_TEXT = 1 << 26
 GATHER_M = 1 << 22
+GATHER_SMALL_M = 1 << 14  # about a device-merge tile's requests
 PAIR_SAMPLES = 1 << 20
 READS_BUILD, TEXT_BUILD = "reads 1M x 200", "text 2^26"
 READS_QUERY, TEXT_QUERY = "reads query", "text query"
@@ -187,9 +192,12 @@ def phase_kernels(dev, reads_corpus, text_tokens):
             check_equal(f"prefix_pack {c} n={n}",
                         pp_mod.prefix_pack(toks, cfg, block=cases.PACK_BLOCK),
                         ref.prefix_pack_ref(toks, cfg))
-    for r, l, m, k in cases.GATHER_SHAPES:
-        args = [torch.from_numpy(a).to(dev) for a in cases.gather_inputs(r, l, m)]
-        check_equal(f"window_gather r={r} l={l} m={m} k={k}",
+    for case, name in zip([*cases.GATHER_CASES, cases.GATHER_LARGE],
+                          [*cases.GATHER_IDS, "large"], strict=True):
+        *args, k = cases.gather_case(case, dev)
+        check_equal(f"window_gather {name} (r, l, m, k = {tuple(args[0].shape)}, "
+                    f"{args[1].shape[0]}, {k}; 16-byte loads "
+                    f"{wg_mod._vector_path(args[0])})",
                     wg_mod.window_gather(*args, k), ref.window_gather_ref(*args, k))
     cmp_cases = [(f"n={n} k={k} block={block}", cases.cmp_inputs(n, k), block)
                  for n, k, block in cases.CMP_SHAPES]
@@ -236,6 +244,7 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                            bs_mod.bitonic_sort_tiles(*args, tile=tile),
                            ref.bitonic_sort_tiles_ref(*args, tile))
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes, "
+        "window_gather's edge cases (misaligned views included), "
         "the edge rows of pattern_cmp and merge_path_ranks, merge_path_ranks' "
         "tiles of sorted runs, bucket_hist's edge splitters and the int32-max "
         "fault inputs of bucket_hist and bitonic_sort_tiles")
@@ -266,30 +275,22 @@ def phase_kernels(dev, reads_corpus, text_tokens):
     del records
 
     # window_gather at the refinement fetch's chunk: 2^22 requests, k = 26,
-    # on the full-size 1 M x 200 corpus (rows/offsets incl. out-of-range)
+    # on the full-size 1 M x 200 corpus (rows/offsets incl. out-of-range);
+    # and at about a device-merge tile's requests, 2^14
     corpus = torch.from_numpy(reads_corpus).to(dev)
-    r, l = corpus.shape
-    rng = np.random.default_rng(1)
-    rows = torch.from_numpy(rng.integers(-1, r + 1, size=(GATHER_M,)).astype(np.int32)).to(dev)
-    offs = torch.from_numpy(rng.integers(0, l + 2, size=(GATHER_M,)).astype(np.int32)).to(dev)
-    got = wg_mod.window_gather(corpus, rows, offs, k)
-    want = ref.window_gather_ref(corpus, rows, offs, k)
-    check_equal("window_gather full size", got, want)
-    valid = (rows >= 0) & (rows < r)
-    tokens_read = int(torch.where(
-        valid, (l - offs.clamp(0, l)).clamp(max=k), 0).sum())
-    # bytes: the two index arrays, the corpus tokens these requests really
-    # read, the windows written; no arithmetic beyond the indexing
-    bound_ms, bound_by = byte_or_op_bound(
-        8 * GATHER_M + 4 * min(tokens_read, r * l) + 4 * GATHER_M * k, 0)
-    out["window_gather"] = dict(
-        max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: wg_mod.window_gather(corpus, rows, offs, k), 20),
-        plain_ms=time_ms(lambda: ref.window_gather_ref(corpus, rows, offs, k), 3),
-        bound_ms=bound_ms, bound_by=bound_by,
-        shape=f"M={GATHER_M}, k={k}, corpus {r}x{l}",
-    )
-    del got, want, corpus, rows, offs
+    for m in (GATHER_M, GATHER_SMALL_M):
+        o = gather_timing(wg_mod.window_gather, corpus, k, m)
+        if m == GATHER_M:
+            out["window_gather"] = o
+        else:
+            rows, offs = gather_requests(*corpus.shape, m, dev)
+            launch_ms = device_ms(lambda: wg_mod.window_gather(corpus, rows, offs, k),
+                                  "window_gather")
+            log(f"phase 3: window_gather small ({o['shape']}): kernel {o['ms']:.4f} ms "
+                f"(device {launch_ms:.4f} ms a launch), plain {o['plain_ms']:.4f} ms, "
+                f"bound {o['bound_ms']:.4f} ms ({o['bound_by']}), "
+                f"max|err| {o['max_abs_err']}")
+    del corpus
 
     # pattern_cmp at the query engine's largest launch: one row per seed of a
     # 4096-pattern batch, K = 26
@@ -316,10 +317,9 @@ def phase_kernels(dev, reads_corpus, text_tokens):
     )
     # at this size a call costs its host launch path more than its device
     # time: read the device time alone from the profiler
-    _, dev_ms, launches = profiled(lambda: [pc_mod.pattern_cmp(*args) for _ in range(200)])
-    key = next(key for key in dev_ms if "pattern_cmp" in key)
-    log(f"phase 3: pattern_cmp B={b}: device time {dev_ms[key] / launches[key]:.4f} ms "
-        f"a launch (profiler, {launches[key]} launches); CUDA events "
+    log(f"phase 3: pattern_cmp B={b}: device time "
+        f"{device_ms(lambda: pc_mod.pattern_cmp(*args), 'pattern_cmp'):.4f} ms "
+        f"a launch (profiler, 200 launches); CUDA events "
         f"{out['pattern_cmp']['ms']:.4f} ms a call, host launch path included")
     # merge_path_ranks at the merge's full tile, C = 4 x 4096: four words (the
     # depth-0 key words and the index words) and the widest row a reads
@@ -347,6 +347,50 @@ def phase_kernels(dev, reads_corpus, text_tokens):
             f"({o['bound_by']}){lib}, "
             f"max|err| {o['max_abs_err']}")
     return out
+
+
+def gather_requests(r, l, m, device, seed=1):
+    """m random (row, offset) requests over an (r, l) corpus, out-of-range
+    rows and offsets included, on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-1, r + 1, size=(m,)).astype(np.int32)
+    offs = rng.integers(0, l + 2, size=(m,)).astype(np.int32)
+    return torch.from_numpy(rows).to(device), torch.from_numpy(offs).to(device)
+
+
+def gather_bound(corpus, rows, offs, k):
+    """window_gather's least time: the two index arrays, the corpus tokens
+    these requests really read and the windows written, over the memory
+    rate; no arithmetic beyond the indexing."""
+    import torch
+
+    r, l = corpus.shape
+    m = rows.shape[0]
+    valid = (rows >= 0) & (rows < r)
+    tokens_read = int(torch.where(valid, (l - offs.clamp(0, l)).clamp(max=k), 0).sum())
+    return byte_or_op_bound(8 * m + 4 * min(tokens_read, r * l) + 4 * m * k, 0)
+
+
+def gather_timing(gather, corpus, k, m):
+    """``gather`` (window_gather's signature) on m random requests: held to
+    the plain version, timed beside it, with its bound."""
+    from repro_torch.kernels import ref
+
+    rows, offs = gather_requests(*corpus.shape, m, corpus.device)
+    got = gather(corpus, rows, offs, k)
+    want = ref.window_gather_ref(corpus, rows, offs, k)
+    check_equal(f"window_gather M={m}", got, want)
+    bound_ms, bound_by = gather_bound(corpus, rows, offs, k)
+    return dict(
+        max_abs_err=max_abs_err(got, want),
+        ms=time_ms(lambda: gather(corpus, rows, offs, k), 20 if m >= 1 << 20 else 200),
+        plain_ms=time_ms(lambda: ref.window_gather_ref(corpus, rows, offs, k), 3),
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"M={m}, k={k}, corpus {corpus.shape[0]}x{corpus.shape[1]}",
+    )
 
 
 def check_bucket_hist(name, got, want):
@@ -834,6 +878,15 @@ def profiled(fn):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return (dt, {e.key: e.self_device_time_total / 1e3 for e in kernels},
             {e.key: e.count for e in kernels})
+
+
+def device_ms(fn, kernel, reps=200):
+    """The profiler's device time a launch of the kernel whose name holds
+    ``kernel``, over ``reps`` calls of ``fn`` (at small sizes a call's CUDA
+    events time its host launch path, not the device)."""
+    _, ms, launches = profiled(lambda: [fn() for _ in range(reps)])
+    key = next(key for key in ms if kernel in key)
+    return ms[key] / launches[key]
 
 
 def by_kind(ms):
@@ -1422,11 +1475,116 @@ def merge_ab(parent, pairs):
         log(f"merge A/B: the change's {what} is lower in {wins} of {pairs} pairs")
 
 
+def gather_ab(parent, rounds):
+    """window_gather against the parent tree's kernel, in one call, on the
+    full reads corpus at M = 2^22 and 2^14 (k = 26): this tree's kernel as
+    built, and the kernel of the checkout at ``parent``, built beside it.
+    Each is held to the plain version, then both are timed in turns
+    (parent, change, change, parent, ...), ``rounds`` times, through their
+    ctypes calls; at 2^14 the profiler also gives each one's device time a
+    launch.  Then pattern_cmp's ms a call with ``_build.launcher``'s cache
+    and without it, in turns."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import window_gather as wg_mod
+
+    lib = _build.BUILD_DIR / "parent" / "libwindow_gather.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    os.path.join(parent, "src/repro_torch/kernels/csrc/window_gather.cu")],
+                   check=True, capture_output=True, text=True)
+    parent_fn = ctypes.CDLL(str(lib)).window_gather_launch
+    # the parent's launcher takes no vector-path flag
+    parent_fn.argtypes = [a for i, a in enumerate(wg_mod._ARGTYPES) if i != 8]
+    parent_fn.restype = ctypes.c_int
+    fns = {"parent": parent_fn,
+           "change": _build.launcher("window_gather", "window_gather_launch",
+                                     wg_mod._ARGTYPES)}
+
+    def gather_with(name):
+        """A ctypes call of the tree's launcher, the same host path for both
+        but the change's vector-path flag."""
+        def gather(corpus, rows, offs, k):
+            (r, l), m = corpus.shape, rows.shape[0]
+            out = torch.empty((m, k), dtype=torch.int32, device=corpus.device)
+            flag = [] if name == "parent" else [int(wg_mod._vector_path(corpus))]
+            err = fns[name](corpus.data_ptr(), rows.data_ptr(), offs.data_ptr(),
+                            out.data_ptr(), m, k, r, l, *flag,
+                            torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"window_gather {name}: cudaError {err}")
+            return out
+        return gather
+
+    gathers = {name: gather_with(name) for name in fns}
+
+    corpus = torch.from_numpy(synth_dna_reads(FULL_READS, FULL_READ_LEN, seed=0)).cuda()
+    k = 26
+    for m in (GATHER_M, GATHER_SMALL_M):
+        times = {name: [] for name in gathers}
+        for i in range(rounds):
+            for name in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
+                o = gather_timing(gathers[name], corpus, k, m)
+                times[name].append(o["ms"])
+        log(f"gather A/B: M={m}, k={k}, corpus {tuple(corpus.shape)}, bound "
+            f"{o['bound_ms']:.4f} ms ({o['bound_by']}); both == plain")
+        rows, offs = gather_requests(*corpus.shape, m, corpus.device)
+        for name, ts in times.items():
+            device = ""
+            if m == GATHER_SMALL_M:
+                gather = gathers[name]
+                launch_ms = device_ms(lambda: gather(corpus, rows, offs, k),
+                                      "window_gather")
+                device = f"; device {launch_ms:.4f} ms a launch"
+            log(f"gather A/B: M={m} {name}: median {statistics.median(ts):.4f} ms, "
+                f"min {min(ts):.4f}, max {max(ts):.4f} over {len(ts)} "
+                f"({', '.join(f'{t:.4f}' for t in ts)}){device}")
+        wins = sum(c < p for p, c in zip(times["parent"], times["change"], strict=True))
+        log(f"gather A/B: M={m}: the change faster in {wins} of {rounds} pairs")
+    del corpus
+    torch.cuda.empty_cache()
+
+    # pattern_cmp's CUDA-event ms a call through its wrapper, host launch
+    # path included, with the launcher's cache of configured functions and
+    # without it (emptied before every launch, as when each launch looked
+    # the symbol up and set its argtypes), in turns
+    from repro_torch.kernels import cases
+    from repro_torch.kernels import pattern_cmp as pc_mod
+
+    args = [torch.from_numpy(a).cuda() for a in cases.cmp_inputs(QUERY_BATCH, k)]
+    cached = _build.launcher
+
+    def uncached(*a):
+        _build._FUNCS.clear()
+        return cached(*a)
+
+    pcmp = {"cached": [], "uncached": []}
+    try:
+        for i in range(2 * rounds):
+            for name in ("cached", "uncached") if i % 2 == 0 else ("uncached", "cached"):
+                _build.launcher = cached if name == "cached" else uncached
+                pcmp[name].append(time_ms(lambda: pc_mod.pattern_cmp(*args), 200))
+    finally:
+        _build.launcher = cached
+    for name, ts in pcmp.items():
+        log(f"pattern_cmp A/B: launcher {name}: median {statistics.median(ts):.4f} ms a "
+            f"call (B={QUERY_BATCH}, K={k}, 200 calls a run), min {min(ts):.4f}, max "
+            f"{max(ts):.4f} over {len(ts)} ({', '.join(f'{t:.4f}' for t in ts)})")
+    wins = sum(c < u for c, u in zip(pcmp["cached"], pcmp["uncached"], strict=True))
+    log(f"pattern_cmp A/B: cached faster in {wins} of {2 * rounds} pairs")
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--stream-reads N [N ...]``: phases 1-2
     and then only phase 9's streaming build, once for each read count (a
     scaling run).  ``--merge-ab PARENT PAIRS``: phases 1-2 and then
-    ``merge_ab``.  Neither prints a result line."""
+    ``merge_ab``; ``--gather-ab PARENT ROUNDS``: phases 1-2 and then
+    ``gather_ab``.  None of these prints a result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1462,6 +1620,10 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--merge-ab"] and len(argv) == 3:
         merge_ab(argv[1], int(argv[2]))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if argv[:1] == ["--gather-ab"] and len(argv) == 3:
+        gather_ab(argv[1], int(argv[2]))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if argv:

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -65,7 +66,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 def launcher(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The ``extern "C"`` function ``symbol`` of library ``name``, built on
-    first use, with its ``argtypes`` set and an ``int`` (cudaError_t) result."""
+    first use, with its ``argtypes`` set and an ``int`` (cudaError_t) result.
+    The configured function is kept, so a launch after the first costs one
+    dict lookup here."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is not None:
+        return fn
     lib = _LOADED.get(name)
     if lib is None:
         path = library_path(name)
@@ -75,4 +81,5 @@ def launcher(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    _FUNCS[(name, symbol)] = fn
     return fn

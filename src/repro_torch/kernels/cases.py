@@ -19,6 +19,9 @@ PACK_IDS = [f"{c['packing']}-v{c['vocab_size']}-cpw{c.get('chars_per_word', 0)}"
 PACK_LENGTHS = [1, 63, 512, 1300]
 PACK_BLOCK = 256
 GATHER_SHAPES = [(8, 16, 5, 4), (32, 200, 64, 26), (3, 7, 17, 7)]  # (r, l, m, k)
+GATHER_EDGE = ("m257", "m1000", "m1", "k1", "k40", "k100", "k1000", "rows-out",
+               "offs-at-l", "last-row-end", "r0", "l0", "view-odd-l",
+               "view-misaligned")
 CMP_SHAPES = [(1, 4, 8), (100, 8, 32), (700, 6, 256)]  # (n, k, block)
 CMP_EDGE_K = (6, 40)  # window widths of the edge-row cases
 MERGE_SHAPES = [(5, 2, 8), (100, 4, 32), (700, 3, 256), (256, 6, 128)]  # (c, w, block)
@@ -58,6 +61,72 @@ def gather_inputs(r: int, l: int, m: int):
     rows = rng.integers(-1, r + 1, size=(m,)).astype(np.int32)
     offs = rng.integers(0, l + 2, size=(m,)).astype(np.int32)
     return corpus, rows, offs
+
+
+def gather_edge_inputs(name: str, device="cpu"):
+    """corpus (R, L), rows, offs (M,) int32 tensors on ``device`` and k,
+    beyond ``gather_inputs``' shapes (the kernel gathers a tile of 64
+    requests a block, 16 bytes a load where the corpus allows):
+
+    - m257 / m1000 / m1: M not a multiple of the tile, and one request;
+    - k1 / k40 / k100 / k1000: one column, windows wider than 32 and 64
+      tokens, and one so wide that a tile holds only 28 requests;
+    - rows-out: every row outside [0, R), int32's ends among them;
+    - offs-at-l: offsets at L and L + 1, negative and int32 max;
+    - last-row-end: every window in the corpus's last row, near its end;
+    - r0 / l0: R = 0 and L = 0 (R·L = 0);
+    - view-odd-l: rows 1.. of a (40, 7) corpus, a view whose base lies 28
+      bytes into its storage;
+    - view-misaligned: a (30, 8) corpus that starts one token into a flat
+      tensor: L % 4 == 0, but the base is not 16-byte aligned.
+
+    Seeded by the case."""
+    import torch
+
+    rng = np.random.default_rng(6000 + GATHER_EDGE.index(name))
+    r, l, m, k = {"m257": (50, 200, 257, 26), "m1000": (64, 200, 1000, 26),
+                  "m1": (8, 200, 1, 26), "k1": (16, 200, 300, 1),
+                  "k40": (16, 200, 300, 40), "k100": (16, 200, 300, 100),
+                  "k1000": (16, 200, 100, 1000),
+                  "rows-out": (10, 200, 300, 26), "offs-at-l": (10, 200, 300, 26),
+                  "last-row-end": (12, 200, 300, 26), "r0": (0, 200, 40, 26),
+                  "l0": (16, 0, 40, 26), "view-odd-l": (39, 7, 300, 10),
+                  "view-misaligned": (30, 8, 300, 26)}[name]
+    corpus = rng.integers(1, 5, size=(r, l)).astype(np.int32)
+    rows = rng.integers(-1, r + 1, size=(m,)).astype(np.int32)
+    offs = rng.integers(0, l + 2, size=(m,)).astype(np.int32)
+    if name == "rows-out":
+        rows = rng.choice(np.array([-1, r, r + 1, -INT32_MAX - 1, INT32_MAX]),
+                          size=m).astype(np.int32)
+    if name == "offs-at-l":
+        offs = rng.choice(np.array([l, l + 1, -1, -7, INT32_MAX, l - 1]),
+                          size=m).astype(np.int32)
+    if name == "last-row-end":
+        rows[:] = r - 1
+        offs = rng.integers(l - k - 4, l + 2, size=(m,)).astype(np.int32)
+    c = torch.from_numpy(corpus).to(device)
+    if name == "view-odd-l":
+        c = torch.from_numpy(np.concatenate([corpus[:1], corpus])).to(device)[1:]
+    if name == "view-misaligned":
+        flat = np.concatenate([[9], corpus.reshape(-1)]).astype(np.int32)
+        c = torch.from_numpy(flat).to(device)[1:].view(r, l)
+    return c, torch.from_numpy(rows).to(device), torch.from_numpy(offs).to(device), k
+
+
+GATHER_CASES = [*GATHER_SHAPES, *GATHER_EDGE]
+GATHER_LARGE = (4096, 200, 1 << 20, 26)  # random requests, on the card only
+GATHER_IDS = ["-".join(map(str, c)) if isinstance(c, tuple) else c
+              for c in GATHER_CASES]
+
+
+def gather_case(case, device="cpu"):
+    """(corpus, rows, offs, k) tensors of a ``GATHER_CASES`` entry."""
+    if isinstance(case, str):
+        return gather_edge_inputs(case, device)
+    import torch
+
+    r, l, m, k = case
+    return (*(torch.from_numpy(a).to(device) for a in gather_inputs(r, l, m)), k)
 
 
 def cmp_inputs(n: int, k: int):

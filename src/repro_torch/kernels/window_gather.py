@@ -6,9 +6,15 @@ gathers the k-token suffix windows: rows outside ``[0, R)`` give zeros,
 offsets are clamped to ``[0, L]``, windows are zero-padded past the row end.
 Source: ``csrc/window_gather.cu``.
 
-Bound: memory (8M index bytes and at most min(M·k, R·L)·4 corpus bytes read,
-M·k·4 bytes written).  One thread per output token keeps the stores
-coalesced; see the source for the rest of the design.
+Bound: bytes (8M index bytes and the corpus tokens the windows hold read,
+M·k·4 bytes written); random 104-byte windows touch 4-5 32-byte sectors
+each, so the DRAM bytes read exceed that count.  A thread per output word
+lost its time to a 64-bit division a word, a reload of the request's row
+and offset a word and 4-byte loads.  Here a CTA gathers a tile of 64
+requests into shared memory, 16 bytes a load where the corpus is 16-byte
+aligned and L % 4 == 0 (``_vector_path``; otherwise 4 bytes a load in the
+same kernel), and the tile leaves contiguous, by 16-byte stores; see the
+source for the rest of the design.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def _check(name: str, t: torch.Tensor, dim: int) -> None:
@@ -29,6 +35,13 @@ def _check(name: str, t: torch.Tensor, dim: int) -> None:
         raise ValueError(
             f"window_gather: {name} must be a contiguous {dim}-D int32 CUDA "
             f"tensor, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _vector_path(corpus: torch.Tensor) -> bool:
+    """16-byte loads are safe: the corpus starts on a 16-byte boundary and
+    its rows are whole 16-byte chunks (a row-slice view may start anywhere,
+    so the pointer is checked, not assumed)."""
+    return corpus.data_ptr() % 16 == 0 and corpus.shape[1] % 4 == 0
 
 
 def window_gather(corpus: torch.Tensor, rows: torch.Tensor,
@@ -48,7 +61,7 @@ def window_gather(corpus: torch.Tensor, rows: torch.Tensor,
         return out
     fn = _build.launcher("window_gather", "window_gather_launch", _ARGTYPES)
     err = fn(corpus.data_ptr(), rows.data_ptr(), offs.data_ptr(),
-             out.data_ptr(), m, k, r, l,
+             out.data_ptr(), m, k, r, l, int(_vector_path(corpus)),
              torch.cuda.current_stream(corpus.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window_gather launch failed: cudaError {err}")

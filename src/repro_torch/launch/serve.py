@@ -14,8 +14,7 @@ times.  It opens an index directory written by either package
 (``repro_torch.launch.sa_build --index-dir``, ``SuffixArrayIndex.save``, or
 their ``repro`` counterparts).  ``--device cuda`` (the default) serves on
 ``cuda:0`` through the hand-written ``pattern_cmp`` kernel; ``--device cpu``
-runs the plain PyTorch path.  ``--shards`` above 1 is world size > 1
-(ROADMAP.md item 10) and exits with an error.
+runs the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -41,8 +40,7 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=64,
                     help="queries per engine batch")
     ap.add_argument("--shards", type=int, default=0,
-                    help="SA shards (0 = one per local device; one card "
-                         "here)")
+                    help="SA shards (0 = one per local device)")
     ap.add_argument("--pattern", action="append", default=[],
                     help="comma-separated token pattern; repeatable. "
                          "When absent, runs the synthetic query load")
@@ -63,11 +61,7 @@ def parse_args(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda: the card with the CUDA kernels; cpu: the "
                          "plain PyTorch path")
-    args = ap.parse_args(argv)
-    if args.shards not in (0, 1):
-        ap.error(f"--shards {args.shards}: more than one shard is world size "
-                 "> 1, not ported yet (ROADMAP.md item 10)")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None):

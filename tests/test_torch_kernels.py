@@ -22,10 +22,10 @@ from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels import cases
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
-    HIST_SHAPES, MERGE_RUN_EDGE, MERGE_RUNS, PACK_BLOCK, PACK_CFGS, PACK_IDS,
-    PACK_LENGTHS, SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs,
-    fault_arrays, gather_inputs, hist_edge_inputs, hist_inputs, merge_run_edge_inputs,
+    CMP_EDGE_K, CMP_SHAPES, GATHER_CASES, GATHER_IDS, HIST_BLOCK, HIST_EDGE,
+    HIST_FAULT, HIST_SHAPES, MERGE_RUN_EDGE, MERGE_RUNS, PACK_BLOCK, PACK_CFGS,
+    PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs,
+    fault_arrays, gather_case, hist_edge_inputs, hist_inputs, merge_run_edge_inputs,
     merge_runs, merge_runs_inputs, pack_tokens, sort_inputs, sorted_rows)
 
 
@@ -45,13 +45,13 @@ def test_prefix_pack_ref_matches_repro(kw, n):
         got.numpy())
 
 
-@pytest.mark.parametrize("r,l,m,k", GATHER_SHAPES)
-def test_window_gather_ref_matches_repro(r, l, m, k):
-    corpus, rows, offs = gather_inputs(r, l, m)
+@pytest.mark.parametrize("case", GATHER_CASES, ids=GATHER_IDS)
+def test_window_gather_ref_matches_repro(case):
+    corpus, rows, offs, k = gather_case(case)
     before = launch_counts()
-    got = ops.window_gather(*map(torch.from_numpy, (corpus, rows, offs)), k)
+    got = ops.window_gather(corpus, rows, offs, k)
     assert launch_counts() == before
-    args = tuple(map(jnp.asarray, (corpus, rows, offs)))
+    args = tuple(jnp.asarray(t.numpy()) for t in (corpus, rows, offs))
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jref.window_gather_ref(*args, k)))
     np.testing.assert_array_equal(got.numpy(),
@@ -212,6 +212,32 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pp_mod.prefix_pack(toks, SAConfig(vocab_size=4))
     with pytest.raises(ValueError, match="CUDA"):
         wg_mod.window_gather(toks.reshape(2, 4), toks[:2], toks[:2], 3)
+
+
+@pytest.mark.parametrize("case,vector", [
+    ((8, 16, 5, 4), True), ((3, 7, 17, 7), False), ("view-odd-l", False),
+    ("view-misaligned", False), ("l0", True), ("m257", True)])
+def test_window_gather_vector_path_is_read_from_the_pointer(case, vector):
+    """16-byte loads only where the corpus starts on a 16-byte boundary and
+    L % 4 == 0: a row-slice view of an aligned corpus with odd L, or an L = 8
+    corpus one token into its storage, takes the 4-byte loads."""
+    corpus = gather_case(case)[0]
+    assert wg_mod._vector_path(corpus) is vector
+
+
+def test_launcher_configures_a_function_once(monkeypatch):
+    """``_build.launcher`` keeps the configured ctypes function: a second
+    call neither loads nor looks the symbol up again."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "_FUNCS", {})
+    monkeypatch.setitem(_build._LOADED, "libc-probe", ctypes.CDLL(None))
+    fn = _build.launcher("libc-probe", "abs", [ctypes.c_int])
+    assert fn(-7) == 7 and fn.restype is ctypes.c_int
+    monkeypatch.delitem(_build._LOADED, "libc-probe")  # a reload would fail
+    assert _build.launcher("libc-probe", "abs", [ctypes.c_int]) is fn
 
 
 def test_pattern_cmp_wrapper_refuses_cpu_tensors():

@@ -19,10 +19,11 @@ from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels.cases import (
-    CMP_EDGE_K, CMP_SHAPES, GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
+    CMP_EDGE_K, CMP_SHAPES, GATHER_CASES, GATHER_IDS, GATHER_LARGE,
+    GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
     HIST_SHAPES, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
     PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES,
-    cmp_edge_inputs, cmp_inputs, fault_arrays, gather_inputs, hist_edge_inputs,
+    cmp_edge_inputs, cmp_inputs, fault_arrays, gather_case, hist_edge_inputs,
     hist_inputs, merge_edge_inputs, merge_inputs, merge_run_edge_inputs,
     merge_runs_inputs, pack_tokens, sort_inputs, sorted_rows)
 
@@ -47,14 +48,26 @@ def test_prefix_pack_kernel_on_card(cuda, kw, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,l,m,k", GATHER_SHAPES)
-def test_window_gather_kernel_on_card(cuda, r, l, m, k):
-    args = [torch.from_numpy(a).to(cuda) for a in gather_inputs(r, l, m)]
+@pytest.mark.parametrize("case", [*GATHER_CASES, GATHER_LARGE],
+                         ids=[*GATHER_IDS, "large"])
+def test_window_gather_kernel_on_card(cuda, case):
+    corpus, rows, offs, k = gather_case(case, cuda)
     before = wg_mod.window_gather.launches
-    got = ops.window_gather(*args, k)
+    got = ops.window_gather(corpus, rows, offs, k)
     torch.cuda.synchronize()
     assert wg_mod.window_gather.launches == before + 1
-    assert torch.equal(got, ref.window_gather_ref(*args, k))
+    assert torch.equal(got, ref.window_gather_ref(corpus, rows, offs, k))
+
+
+@pytest.mark.gpu
+def test_window_gather_refuses_what_it_cannot_launch(cuda):
+    """A window too wide for a tile of 4 requests in shared memory is a
+    refused launch: it raises and is not counted."""
+    corpus, rows, offs, _ = gather_case(GATHER_SHAPES[0], cuda)
+    before = wg_mod.window_gather.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        wg_mod.window_gather(corpus, rows, offs, 10_000)
+    assert wg_mod.window_gather.launches == before
 
 
 def _pattern_cmp_on_card(cuda, arrays, block):

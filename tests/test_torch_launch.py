@@ -163,7 +163,12 @@ def _serve_lines(lines):
     ["--queries", "150", "--batch", "16", "--store-backend", "memory",
      "--verify", "eager", "--seed", "4", "--hot-fraction", "0.5"],
     ["--pattern", "1,2,3", "--pattern", "4,4", "--pattern", "2"],
-], ids=["load", "load-memory-eager", "patterns"])
+    ["--shards", "2", "--pattern", "1,2,3", "--pattern", "2,2", "--pattern", "4"],
+    ["--shards", "2", "--queries", "100", "--batch", "16"],
+    ["--shards", "3", "--queries", "120", "--batch", "32", "--store-backend",
+     "memory"],
+], ids=["load", "load-memory-eager", "patterns", "patterns-shards2",
+        "load-shards2", "load-memory-shards3"])
 def test_serve_matches_repro(tmp_path, flags):
     """``repro_torch.launch.serve`` over an index directory written by
     repro: the same printout as ``repro.launch.serve`` apart from walls."""
@@ -176,11 +181,20 @@ def test_serve_matches_repro(tmp_path, flags):
     assert got == want and len(got) >= 3
 
 
-def test_serve_refuses_more_than_one_shard(capsys):
+def test_serve_refuses_more_than_one_shard(tmp_path, capsys):
+    """No shard count is refused: shards are logical slices of one suffix
+    array (``repro.serve.sa_engine.ShardedSAEngine``), so ``--shards 2``
+    parses and serves on the CPU, and the engine has two shards."""
+    from repro_torch.data.corpus import synth_dna_reads
     from repro_torch.launch import serve
+    from repro_torch.serve.sa_engine import SuffixArrayIndex
 
-    assert serve.parse_args(["--index-dir", "ix", "--shards", "1"]).shards == 1
-    with pytest.raises(SystemExit) as e:
-        serve.parse_args(["--index-dir", "ix", "--shards", "2"])
-    assert e.value.code != 0
-    assert "ROADMAP.md item 10" in capsys.readouterr().err
+    assert serve.parse_args(["--index-dir", "ix", "--shards", "2"]).shards == 2
+    ix = str(tmp_path / "ix")
+    reads = synth_dna_reads(30, 16, seed=3)
+    SuffixArrayIndex.build(reads, index_dir=ix, device="cpu").close()
+    serve.main(["--device", "cpu", "--index-dir", ix, "--shards", "2",
+                "--queries", "40", "--batch", "8"])
+    out = capsys.readouterr().out
+    assert "served 40 queries" in out
+    assert "  shards=2 " in out
