@@ -12,7 +12,9 @@ each of which fails loudly:
 1. the card's name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel to its plain PyTorch version on the card with
-   ``torch.equal``, at the kernel-test shapes (``pattern_cmp``'s and
+   ``torch.equal``, at the kernel-test shapes (``prefix_pack``'s edge
+   lengths, views and wide tokens, ``pattern_search`` on the CPU tests'
+   corpora and boundary patterns, ``pattern_cmp``'s and
    ``merge_path_ranks``' edge rows, ``merge_path_ranks``' tiles of sorted
    runs, ``bucket_hist``'s edge splitters (keys at offsets 0 and 1), and the
    int32-max fault inputs of ``bucket_hist`` and ``bitonic_sort_tiles``
@@ -27,7 +29,7 @@ each of which fails loudly:
    ``torch.unique``'s inverse index (the same ranks on unique rows);
 4. small end-to-end builds on the card (kernels on) against the numpy oracle,
    and small ``SuffixArrayIndex`` builds whose count/locate/align answers
-   are held to brute force;
+   are held to brute force (served through ``pattern_search``);
 5. two full-size builds through ``repro_torch.launch.sa_build``'s code path,
    each with the kernels and with the plain path on the card: 1 M DNA reads
    of 200 tokens (201 M suffixes) and a 2^26-token text.  Both paths must
@@ -44,9 +46,13 @@ each of which fails loudly:
    batches of 4096 alignment seeds sampled from SA rows (a quarter from a
    hot set) through ``count`` and one batch through ``align``.  A second
    engine on the plain compare must give the same ranges and
-   ``engine_stats()``; ``pattern_cmp`` must launch on the kernel engine and
-   not on the plain one; every range is checked at its edges against the
-   tokens, and 2^20 sampled LCP values against a direct compare;
+   ``engine_stats()``; ``pattern_search`` must launch on the kernel engine
+   (and, on the reads index, no ``pattern_cmp``) and nothing on the plain
+   one; every range is checked at its edges against the tokens, and 2^20
+   sampled LCP values against a direct compare.  One 4096-seed
+   ``pattern_search`` call a bound is held to its plain version (bounds,
+   levels, rounds) and timed (CUDA events, the profiler's device time)
+   beside its byte bound and its chain of dependent loads;
 8. the out-of-core build: the 2^26-token text of phase 5 and its reads cut
    to ``OOC_READS`` reads (same read length, alphabet and seed), with
    ``SuperblockConfig(num_superblocks=4, emit_lcp=True)``, each built with
@@ -65,7 +71,8 @@ each of which fails loudly:
    corpus, manifest), reopened with ``verify="eager"`` on the chunked
    store (a 1 GiB cache) and on the memory store, and phase 7's seed
    batches are answered again: the ranges must equal the in-memory
-   index's and ``pattern_cmp`` must launch.  After phase 8, a streaming
+   index's, ``pattern_cmp`` must launch on the chunked store (its round
+   loop) and ``pattern_search`` on the memory store.  After phase 8, a streaming
    build
    (``store_backend="chunked"`` at a quarter of the corpus bytes, S = 4,
    LCP) of ``STREAM_READS`` reads (or, with ``--stream-reads``, each
@@ -112,7 +119,8 @@ READS_OOC = f"reads {OOC_READS // 1000}K x 200 out-of-core"
 TEXT_OOC = "text 2^26 out-of-core"
 # the full-size run whose main path each kernel lies on
 KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
-                "pattern_cmp": READS_QUERY, "merge_path": READS_OOC}
+                "pattern_search": READS_QUERY,
+                "pattern_cmp": "reads reopened chunked", "merge_path": READS_OOC}
 # phase 8: superblocks of the out-of-core cells; full-size merge tiles of
 # phase 3 (C = 4 runs x 4096 heads)
 OOC_SUPERBLOCKS = 4
@@ -192,6 +200,14 @@ def phase_kernels(dev, reads_corpus, text_tokens):
             check_equal(f"prefix_pack {c} n={n}",
                         pp_mod.prefix_pack(toks, cfg, block=cases.PACK_BLOCK),
                         ref.prefix_pack_ref(toks, cfg))
+        for name in cases.PACK_EDGE:
+            toks, off = cases.pack_edge_tokens(c, name)
+            toks = torch.from_numpy(toks).to(dev)[off:]
+            for block in (cases.PACK_BLOCK, 512, 60):
+                check_equal(f"prefix_pack {c} {name} block={block}",
+                            pp_mod.prefix_pack(toks, cfg, block=block),
+                            ref.prefix_pack_ref(toks, cfg))
+    search_cases(dev)
     for case, name in zip([*cases.GATHER_CASES, cases.GATHER_LARGE],
                           [*cases.GATHER_IDS, "large"], strict=True):
         *args, k = cases.gather_case(case, dev)
@@ -244,6 +260,8 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                            bs_mod.bitonic_sort_tiles(*args, tile=tile),
                            ref.bitonic_sort_tiles_ref(*args, tile))
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes, "
+        "prefix_pack's edge lengths, views and wide tokens, pattern_search on "
+        "the CPU tests' corpora, "
         "window_gather's edge cases (misaligned views included), "
         "the edge rows of pattern_cmp and merge_path_ranks, merge_path_ranks' "
         "tiles of sorted runs, bucket_hist's edge splitters and the int32-max "
@@ -347,6 +365,38 @@ def phase_kernels(dev, reads_corpus, text_tokens):
             f"({o['bound_by']}){lib}, "
             f"max|err| {o['max_abs_err']}")
     return out
+
+
+def search_cases(dev):
+    """``pattern_search`` against its plain version on the card at the CPU
+    tests' corpora and boundary patterns: 1-3 shards, with and without LCP,
+    both bounds."""
+    import torch
+
+    from repro_torch import ShardedSAEngine
+    from repro_torch.config import SAConfig
+    from repro_torch.core.lcp import lcp_from_sa
+    from repro_torch.core.store import CorpusStore
+    from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import pattern_cmp as pc_mod
+
+    for name in cases.SEARCH_CORPORA:
+        corpus, sa = cases.search_corpus(name)
+        store = CorpusStore(corpus, SAConfig(**cases.SEARCH_CFG), device=dev)
+        lcp = lcp_from_sa(store, sa)
+        for shards in (1, 2, 3):
+            for with_lcp in (True, False):
+                eng = ShardedSAEngine(store, sa, lcp=lcp if with_lcp else None,
+                                      num_shards=shards, use_pallas=True)
+                for upper in (False, True):
+                    args = cases.search_args(eng, cases.search_patterns(corpus), upper)
+                    got = pc_mod.pattern_search(*args)
+                    want = ref.pattern_search_ref(*args)
+                    for what, g, w in zip(("bound", "levels", "rounds"), got, want,
+                                          strict=True):
+                        check_equal(f"pattern_search {name} shards={shards} "
+                                    f"lcp={with_lcp} upper={upper} {what}", g, w)
+    torch.cuda.synchronize()
 
 
 def gather_requests(r, l, m, device, seed=1):
@@ -728,8 +778,9 @@ def phase_small_indexes(dev):
         idx = SuffixArrayIndex.build(corpus, cfg=cfg, device=dev)
         counts, occ = idx.count(pats), idx.locate(pats)
         launched = launch_counts()
-        if launched["pattern_cmp"] <= 0:
-            raise AssertionError(f"phase 4: {name}: pattern_cmp not launched: {launched}")
+        if launched["pattern_search"] <= 0:
+            raise AssertionError(f"phase 4: {name}: pattern_search not launched: "
+                                 f"{launched}")
         for p, c, o in zip(pats, counts, occ, strict=True):
             live = p.size == 0 or (p.min() >= 1 and p.max() <= 4)
             if corpus.ndim == 1:
@@ -855,7 +906,8 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
 
 KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
     ("prefix_pack", "prefix_pack"), ("window_gather", "window_gather"),
-    ("pattern_cmp", "pattern_cmp"), ("merge_path", "merge_path"),
+    ("pattern_search", "pattern_search"), ("pattern_cmp", "pattern_cmp"),
+    ("merge_path", "merge_path"),
     ("gather", "gather"),
     ("RadixSort", "sort"), ("radix", "sort"), ("sort", "sort"),
     ("scan", "scan"), ("scatter", "scatter"), ("index", "index"),
@@ -1053,8 +1105,11 @@ def phase_queries(dev, reads_corpus, text_tokens):
         peak = torch.cuda.max_memory_allocated()
         kstats = eng.engine_stats()
         counts[name] = launched
-        if launched["pattern_cmp"] <= 0:
-            raise AssertionError(f"{name}: pattern_cmp not launched: {launched}")
+        if launched["pattern_search"] <= 0:
+            raise AssertionError(f"{name}: pattern_search not launched: {launched}")
+        if eng.num_shards == 1 and launched["pattern_cmp"]:
+            raise AssertionError(f"{name}: pattern_cmp launched on the memory store "
+                                 f"with one shard: {launched}")
 
         # the plain compare over the same backend and arrays, in a store of
         # its own so its traffic counters start from 0 as the kernel's did
@@ -1087,6 +1142,7 @@ def phase_queries(dev, reads_corpus, text_tokens):
                      torch.from_numpy(eng.ranges(seeds)).to(dev))
         check_sampled_lcp(flat, pos, eng.lcp, seed=13)
         del flat, pos, plain, plain_store
+        search = search_timing(name, eng, batches[0])
         # where one more (uncached) batch spends its time
         extra = sample_seeds(idx, rng, QUERY_BATCH, m)
         dt, ms, _ = profiled(lambda e=extra: idx.count(e))
@@ -1097,7 +1153,8 @@ def phase_queries(dev, reads_corpus, text_tokens):
             build_s=t_build, engine_s=t_engine, qps=n_q / t_query,
             plain_qps=n_q / t_plain,
             p50_ms=float(np.percentile(lat_ms, 50)),
-            p95_ms=float(np.percentile(lat_ms, 95)), peak_gib=peak / 2**30)
+            p95_ms=float(np.percentile(lat_ms, 95)), peak_gib=peak / 2**30,
+            search=search)
         log(f"phase 7: {name}: {len(idx.sa)} suffixes; build with LCP "
             f"{t_build:.3f} s, engine set-up (LLCP/RLCP) {t_engine:.3f} s; "
             f"{n_q} seeds of {m} in {len(batches)} count batches of "
@@ -1108,6 +1165,8 @@ def phase_queries(dev, reads_corpus, text_tokens):
             f"misses {kstats['cache_misses']}, store requests "
             f"{kstats['store_requests']}; peak {peak / 2**30:.2f} GiB; plain "
             f"engine {n_q / t_plain:.0f} queries/s")
+        log(f"phase 7: {name}: count batch walls in order (ms): "
+            + ", ".join(f"{1e3 * t:.1f}" for t in lat))
         log(f"phase 7: {name}: one more batch profiled: wall {dt * 1e3:.1f} ms, "
             f"device busy {busy:.1f} ms ({100 * busy / (dt * 1e3):.1f} % of wall); "
             f"by kind: {by_kind(ms)}")
@@ -1123,6 +1182,64 @@ def phase_queries(dev, reads_corpus, text_tokens):
             idx.close()
         del idx, eng, sa
     return counts, report, lcps, kept
+
+
+def search_timing(name, eng, batch):
+    """One ``pattern_search`` call a bound for a seed batch on a full index:
+    held to its plain version on the card (bounds, levels, rounds), timed by
+    CUDA events and by the profiler's device time, beside its byte bound and
+    its longest chain of dependent loads."""
+    import torch
+
+    from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import pattern_cmp as pc_mod
+
+    calls = [cases.search_args(eng, batch, upper) for upper in (False, True)]
+    outs, err = [], 0
+    for args in calls:
+        got, want = pc_mod.pattern_search(*args), ref.pattern_search_ref(*args)
+        for what, g, w in zip(("bound", "levels", "rounds"), got, want, strict=True):
+            check_equal(f"{name}: pattern_search upper={args[10]} {what}", g, w)
+            err = max(err, max_abs_err(g, w))
+        outs.append(got)
+
+    def both():
+        for args in calls:
+            pc_mod.pattern_search(*args)
+
+    def both_plain():
+        for args in calls:
+            ref.pattern_search_ref(*args)
+
+    ms = time_ms(both, 50)
+    plain_ms = time_ms(both_plain, 2)
+    dev_ms = 2 * device_ms(both, "pattern_search", reps=50)
+    # bytes, counted from this batch's record: a 32-byte sector for each
+    # compare's sa entry and each window level's tokens, one for the
+    # LLCP/RLCP entry of every round that made no compare (at least those
+    # read one), the pattern rows and in/outputs; operations: a token
+    # compared a level at least.  The chain: a load a round and one more a
+    # compare, one launch after the other.
+    nbytes = ops = chain = 0
+    for args, (_, levels, active) in zip(calls, outs, strict=True):
+        q, r = levels.shape
+        compares, tokens = int((levels > 0).sum()), int(levels.sum())
+        decided = int(active.sum()) - compares if eng._llcp is not None else 0
+        nbytes += (32 * (decided + compares + tokens) + 8 * args[6].numel()
+                   + 8 * 4 * q + 4 * q * r + 4 * q)
+        ops += tokens
+        chain += int((active + (levels > 0).sum(dim=1)).max())
+    bound_ms, bound_by = byte_or_op_bound(nbytes, ops)
+    q, lmax = calls[0][6].shape
+    log(f"phase 7: {name}: pattern_search, both bounds of {q} seeds (lmax {lmax}): "
+        f"kernel {ms:.4f} ms a call (CUDA events, two launches), device "
+        f"{dev_ms:.4f} ms (profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {nbytes} B); latency floor: the longest "
+        f"rows' chains {chain} dependent loads, {1e6 * dev_ms / chain:.1f} ns a "
+        f"load at the device time; == plain (bounds, levels, rounds)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, device_ms=dev_ms, chain=chain,
+                shape=f"q={q}, both bounds")
 
 
 def stats_without_walls(stats):
@@ -1348,8 +1465,9 @@ def phase_reopen(dev, reads_index):
             if not all(np.array_equal(g, w) for g, w in zip(got, want, strict=True)):
                 raise AssertionError(f"phase 9: reopened ({backend}) ranges != "
                                      "the in-memory index's")
-            if launched["pattern_cmp"] <= 0:
-                raise AssertionError(f"phase 9: reopened ({backend}): pattern_cmp "
+            kernel = "pattern_cmp" if backend == "chunked" else "pattern_search"
+            if launched[kernel] <= 0:
+                raise AssertionError(f"phase 9: reopened ({backend}): {kernel} "
                                      f"not launched: {launched}")
             counts[f"reads reopened {backend}"] = launched
             st = eng.engine_stats()
@@ -1641,8 +1759,9 @@ def main(argv) -> int:
     phase_small_out_of_core(dev)
     counts, incore_sa = phase_full_builds(dev, reads_corpus, text_tokens)
     phase_profile([(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)])
-    query_counts, _, incore_lcp, reads_index = phase_queries(dev, reads_corpus,
-                                                             text_tokens)
+    query_counts, query_report, incore_lcp, reads_index = phase_queries(
+        dev, reads_corpus, text_tokens)
+    kern["pattern_search"] = query_report[READS_QUERY]["search"]
     counts.update(query_counts)
     counts.update(phase_reopen(dev, reads_index))
     del reads_index
@@ -1659,6 +1778,8 @@ def main(argv) -> int:
                           "src/repro/kernels/window_gather.py:33"),
         "pattern_cmp": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
                         "src/repro/kernels/pattern_cmp.py:59"),
+        "pattern_search": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
+                           "src/repro/kernels/pattern_cmp.py:59"),
         "merge_path": ("src/repro_torch/kernels/csrc/merge_path.cu",
                        "src/repro/kernels/merge_path.py:52"),
         "bucket_hist": ("src/repro_torch/kernels/csrc/bucket_hist.cu",
@@ -1672,10 +1793,12 @@ def main(argv) -> int:
                   "phase 3 only" for k in ("bucket_hist", "bitonic_sort")}
     launches = {k: (sum(c[k] for c in counts.values()) if k in no_path
                     else counts[KERNEL_BUILD[k]][k]) for k in sources}
-    for k in no_path:
-        if launches[k]:
+    for k in sources:
+        if k in no_path and launches[k]:
             raise AssertionError(f"{k} launched {launches[k]} times on the main "
                                  f"paths, which no path of src/repro does")
+        if k not in no_path and launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched in the {KERNEL_BUILD[k]} run")
     log("kernels: " + "; ".join(
         (f"{k} launches={launches[k]} over all {len(counts)} runs ({no_path[k]})"
          if k in no_path else

@@ -9,7 +9,7 @@ raw-array wrappers are ROADMAP.md item 11.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +78,118 @@ def masked_cmp(sfx: torch.Tensor, pat: torch.Tensor, start: torch.Tensor,
     neq = first < stop
     cmp = torch.where(neq & (sv < pv), -1, torch.where(neq & (sv > pv), 1, 0))
     return cmp.to(torch.int32), matched
+
+
+def compare_levels(fetch, compare, gidx: torch.Tensor, pat_rows: torch.Tensor,
+                   pat_len: torch.Tensor, t0: torch.Tensor, pi: torch.Tensor,
+                   k: int, max_levels: int,
+                   levels: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trichotomy of suffix ``gidx[i]`` against pattern row ``pi[i]``,
+    ``t0[i]`` tokens already matched: one ``fetch(gidx, lv)`` of (m, k)
+    windows and one ``compare(win, pw, start, stop)`` (``masked_cmp``'s
+    contract) a window level still in play, at most ``max_levels`` levels.
+
+    Returns ``(cmp, t)``: cmp in {-1, 0, +1}, 0 when the pattern is a
+    prefix of the suffix, and t the matched tokens (at most the pattern's
+    length).  ``levels``, when given, gains one for every level row i
+    compares (the engine's ``pattern_search`` record).
+    """
+    dev = gidx.device
+    q = gidx.shape[0]
+    plen = pat_len[pi]
+    cols_k = torch.arange(k, dtype=torch.int64, device=dev)
+    cmp = torch.zeros(q, dtype=torch.int32, device=dev)
+    t = t0.clone()
+    undecided = t < plen  # t0 == plen: fully matched already
+    for _ in range(max_levels):
+        idx = torch.nonzero(undecided).squeeze(1)
+        if idx.numel() == 0:
+            return cmp, t
+        if levels is not None:
+            levels[idx] += 1
+        ti, pli = t[idx], plen[idx]
+        lv = ti // k
+        win = fetch(gidx[idx], lv)
+        start = ti - lv * k
+        stop = torch.clamp(pli - lv * k, max=k)
+        cols = lv[:, None] * k + cols_k[None, :]
+        cc = torch.clamp(cols, max=pat_rows.shape[1] - 1)
+        pw = torch.where(cols < pli[:, None], pat_rows[pi[idx][:, None], cc], 0)
+        c, m_in = compare(win, pw, start, stop)
+        t[idx] = ti + m_in
+        cmp[idx] = c
+        done = (c != 0) | (t[idx] >= pli)
+        undecided[idx[done]] = False
+    raise RuntimeError("batched compare overran the window bound")
+
+
+def bound_rounds(sa: torch.Tensor, llcp: Optional[torch.Tensor],
+                 rlcp: Optional[torch.Tensor], lo: torch.Tensor, hi: torch.Tensor,
+                 upper: bool, compare,
+                 record: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, int]:
+    """The Manber–Myers rounds of ``repro.serve.sa_engine.ShardedSAEngine.
+    _bound_batch`` for every row at once, from the open ranges ``(lo, hi)``
+    (updated in place).
+
+    Open-endpoint invariant per row: ``l = lcp(P, sa[lo])``, ``r = lcp(P,
+    sa[hi])``.  A round takes every row with ``hi - lo > 1``; LLCP/RLCP
+    (when given) decide what they can and the rest go to one
+    ``compare(gidx, t0, rows, lv) -> (cmp, t)`` (``lv`` the level counts of
+    :func:`compare_levels`, or None).  ``record = (levels (q, R), rounds
+    (q,))``, int32 zeros, is filled with each row's levels a round and its
+    rounds.  Returns ``(hi, rounds)``: the bounds and the rounds made.
+    """
+    dev = sa.device
+    l = torch.zeros_like(lo)
+    r = torch.zeros_like(lo)
+    use_lr = llcp is not None
+    rnd = 0
+    while True:
+        act = torch.nonzero(hi - lo > 1).squeeze(1)
+        if act.numel() == 0:
+            return hi, rnd
+        mid = (lo[act] + hi[act]) >> 1
+        la, ra = l[act], r[act]
+        right = torch.zeros(act.shape[0], dtype=torch.bool, device=dev)
+        newl, newr = la.clone(), ra.clone()
+        if use_lr:
+            ne = la != ra
+            x = torch.where(la > ra, llcp[mid], rlcp[mid])
+            mx = torch.maximum(la, ra)
+            gt, ltm = ne & (x > mx), ne & (x < mx)
+            c1, c2 = la > ra, ra > la
+            # x beyond the deeper endpoint's agreement: mid sides with
+            # that endpoint (l/r carry over); x short of it: mid sides
+            # against it and its own lcp is exactly x.
+            right |= c1 & gt
+            newr = torch.where(c1 & ltm, x, newr)
+            right |= c2 & ltm
+            newl = torch.where(c2 & ltm, x, newl)
+            need = ~(gt | ltm)
+            t0 = torch.where(ne, mx, la)  # proven-equal prefix at the mid
+        else:
+            need = torch.ones(act.shape[0], dtype=torch.bool, device=dev)
+            t0 = torch.minimum(la, ra)
+        ni = torch.nonzero(need).squeeze(1)
+        if ni.numel():
+            lv = None if record is None else torch.zeros(
+                ni.shape[0], dtype=torch.int32, device=dev)
+            c, t = compare(sa[mid[ni]], t0[ni], act[ni], lv)
+            if record is not None:
+                record[0][act[ni], rnd] = lv
+            re = (c <= 0) if upper else (c < 0)
+            right[ni] = re
+            newl[ni] = torch.where(re, t, newl[ni])
+            newr[ni] = torch.where(re, newr[ni], t)
+        lo[act] = torch.where(right, mid, lo[act])
+        hi[act] = torch.where(right, hi[act], mid)
+        l[act] = torch.where(right, newl, la)
+        r[act] = torch.where(right, ra, newr)
+        if record is not None:
+            record[1][act] += 1
+        rnd += 1
 
 
 def search_store(store: CorpusStore, sa, pattern) -> Tuple[int, int]:

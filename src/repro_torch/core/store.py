@@ -348,11 +348,29 @@ class StoreBackend:
         pass
 
 
+def padded_windows(padded: torch.Tensor, stride_bits: int, k: int,
+                   gidx: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(m, K) int32 windows of suffixes ``gidx`` at token offset ``depth * K``
+    of a corpus zero-padded by K tokens (``InMemoryBackend.padded``): token
+    p of suffix g is the corpus token there, 0 past the text's end or the
+    row's.  No counter is touched."""
+    cols = torch.arange(k, device=padded.device)
+    if padded.dim() == 1:
+        n = padded.shape[0] - k
+        pos = torch.clamp(gidx + depth * k, max=n)
+        return padded[torch.clamp(pos[:, None] + cols[None, :], max=n + k - 1)]
+    row = gidx >> stride_bits
+    off = gidx & ((1 << stride_bits) - 1)
+    off = torch.clamp(off + depth * k, max=padded.shape[1] - k)
+    return padded[row[:, None], off[:, None] + cols[None, :]]
+
+
 class InMemoryBackend(StoreBackend):
     """Whole-corpus backend, resident on ``device`` (the card by default).
 
-    The zero-padded corpus (``_flat`` in text mode, ``_rows`` for reads) is
-    an int32 tensor there; the host array is kept for :meth:`read_items`.
+    The corpus zero-padded by K tokens at the end of the text or of every
+    row (``padded``: ``(n + K,)`` or ``(rows, row_len + K)``) is an int32
+    tensor there; the host array is kept for :meth:`read_items`.
     """
 
     def __init__(self, corpus, cfg: SAConfig, device=None):
@@ -365,29 +383,16 @@ class InMemoryBackend(StoreBackend):
         self._init_geometry(text_mode, items, row_len, cfg)
         self.device = resolve_device(device)
         self._corpus = corpus
-        dev_corpus = torch.from_numpy(corpus).to(self.device)
-        if text_mode:
-            self._flat = torch.nn.functional.pad(dev_corpus, (0, self.k))
-        else:
-            self._rows = torch.nn.functional.pad(dev_corpus, (0, self.k))
-        del dev_corpus
+        self.padded = torch.nn.functional.pad(
+            torch.from_numpy(corpus).to(self.device), (0, self.k))
 
     @property
     def resident_bytes(self) -> int:
-        t = self._flat if self.text_mode else self._rows
-        return t.numel() * t.element_size()
+        return self.padded.numel() * self.padded.element_size()
 
     def gather(self, gidx: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         self.cache_hits += int(gidx.shape[0])  # always resident
-        cols = torch.arange(self.k, device=self.device)
-        if self.text_mode:
-            pos = torch.clamp(gidx + depth * self.k, max=self.n)
-            return self._flat[torch.clamp(pos[:, None] + cols[None, :],
-                                          max=self.n + self.k - 1)]
-        row = gidx >> self.stride_bits
-        off = gidx & ((1 << self.stride_bits) - 1)
-        off = torch.clamp(off + depth * self.k, max=self.max_len - 1)
-        return self._rows[row[:, None], off[:, None] + cols[None, :]]
+        return padded_windows(self.padded, self.stride_bits, self.k, gidx, depth)
 
     def read_items(self, lo: int, hi: int) -> np.ndarray:
         return self._corpus[lo:hi]
@@ -666,13 +671,24 @@ class CorpusStore:
         self.peak_windows = max(self.peak_windows, m)
         return win[:m], win[m:]
 
-    def _count_windows(self, m: int) -> None:
+    def _count_windows(self, m: int, rounds: Optional[int] = None) -> None:
         """The counters of one JAX fetch of ``m`` windows: a round per
-        capacity chunk."""
-        self.rounds += -(-m // self.request_capacity)
+        capacity chunk (``rounds``, when given, for fetches summed)."""
+        self.rounds += -(-m // self.request_capacity) if rounds is None else rounds
         self.requests += m
         self.request_bytes += m * self.index_bytes
         self.response_bytes += m * self.k * self.token_bytes
+
+    def note_searched(self, windows: int, rounds: int, peak: int) -> None:
+        """The counters of the in-memory fetches that the ``pattern_search``
+        kernel made on the device, as the search's round loop would have
+        made them with :meth:`fetch_windows`: ``windows`` windows over
+        ``rounds`` capacity rounds, the largest fetch ``peak`` windows, every
+        one a backend cache hit."""
+        self._count_windows(windows, rounds)
+        self.peak_windows = max(self.peak_windows, peak)
+        self.backend.cache_hits += windows
+        self._note_resident()
 
     def gather_keys(self, gidx, depth) -> Tuple[torch.Tensor, torch.Tensor]:
         """The backend half of :meth:`fetch_keys`: windows at ``depth``

@@ -3,7 +3,9 @@
 ``KERNEL_REGISTRY`` has the keys of ``repro.kernels.KERNEL_REGISTRY`` (one
 per Pallas kernel of the JAX package).  Each entry names its dispatch op in
 ``repro_torch.kernels.ops`` and its plain version in
-``repro_torch.kernels.ref``.
+``repro_torch.kernels.ref``.  ``pattern_search``, the query engine's whole
+search on the card, has no entry: it has no Pallas counterpart, and lives
+beside ``pattern_cmp``, whose compare it runs in every round.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ def _wrappers() -> Dict[str, object]:
         "window_gather": window_gather.window_gather,
         "bucket_hist": bucket_hist.bucket_hist,
         "pattern_cmp": pattern_cmp.pattern_cmp,
+        "pattern_search": pattern_cmp.pattern_search,
         "merge_path": merge_path.merge_path_ranks,
         "bitonic_sort": bitonic_sort.bitonic_sort_tiles,
     }

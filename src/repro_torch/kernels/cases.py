@@ -18,6 +18,10 @@ PACK_IDS = [f"{c['packing']}-v{c['vocab_size']}-cpw{c.get('chars_per_word', 0)}"
             for c in PACK_CFGS]
 PACK_LENGTHS = [1, 63, 512, 1300]
 PACK_BLOCK = 256
+# prefix_pack's edges: lengths that are no multiple of a thread's 8
+# positions or of a tile (PACK_BLOCK or 512 positions), tokens as views that
+# start 1 and 2 tokens into their storage, tokens outside [0, 2^bits)
+PACK_EDGE = ("n7", "n9", "n2047", "n2049", "n6151", "view1", "view2", "wide")
 GATHER_SHAPES = [(8, 16, 5, 4), (32, 200, 64, 26), (3, 7, 17, 7)]  # (r, l, m, k)
 GATHER_EDGE = ("m257", "m1000", "m1", "k1", "k40", "k100", "k1000", "rows-out",
                "offs-at-l", "last-row-end", "r0", "l0", "view-odd-l",
@@ -51,6 +55,18 @@ def pack_tokens(kw: dict, n: int) -> np.ndarray:
     """(n,) int32 tokens in [1, vocab_size], seeded by ``n``."""
     rng = np.random.default_rng(n)
     return rng.integers(1, kw["vocab_size"] + 1, size=(n,)).astype(np.int32)
+
+
+def pack_edge_tokens(kw: dict, name: str):
+    """(tokens, offset) of a ``PACK_EDGE`` case: the tokens to pack are
+    ``tokens[offset:]`` (a view past the storage's first ``offset``)."""
+    if name.startswith("n"):
+        return pack_tokens(kw, int(name[1:])), 0
+    if name.startswith("view"):
+        return pack_tokens(kw, 4099), int(name[4:])
+    toks = pack_tokens(kw, 5000)  # wide: in a few tiles, the rest without
+    toks[[7, 100, 2050]] = (-5, kw["vocab_size"] + 9, 1 << 30)
+    return toks, 0
 
 
 def gather_inputs(r: int, l: int, m: int):
@@ -361,3 +377,92 @@ def sorted_rows(kh, kl, v):
     for col in (2, 1, 0):  # a lexsort as chained stable sorts
         rows = rows[torch.sort(rows[:, col], stable=True).indices]
     return rows
+
+
+# pattern_search: corpora, patterns and a config with K = 4 tokens a window
+# level, so that short corpora take many levels
+SEARCH_CFG = dict(vocab_size=3, chars_per_word=2, key_words=2)
+SEARCH_K = 4
+SEARCH_CORPORA = ("random text", "repetitive text", "variable reads")
+
+
+def search_corpus(name: str):
+    """(corpus, SA) of a ``SEARCH_CORPORA`` kind; a suffix in each ends
+    exactly at a window boundary (the text's length and two reads' lengths
+    are multiples of K), and the reads hold a duplicate."""
+    from repro_torch.core.oracle import naive_sa_reads, naive_sa_text
+
+    rng = np.random.default_rng(17)
+    if name == "random text":
+        text = rng.integers(1, 4, 240).astype(np.int32)
+        return text, naive_sa_text(text)
+    if name == "repetitive text":
+        text = np.tile(rng.integers(1, 3, 6).astype(np.int32), 30)[:176]
+        return text, naive_sa_text(text)
+    lens = rng.integers(1, 14, 20)
+    lens[:3] = (13, 8, 4)
+    reads = np.zeros((20, 13), np.int32)
+    for i, n in enumerate(lens):
+        reads[i, :n] = rng.integers(1, 4, n)
+    reads[3] = reads[0]
+    return reads, naive_sa_reads(reads, lengths=lens)
+
+
+def search_patterns(corpus: np.ndarray, seed: int = 3):
+    """Random substrings and the boundary patterns: lengths 0, 1, K-1, K,
+    K+1, 2K and longer than any suffix, a suffix that ends at a window
+    boundary with the pattern running on, tokens below 1 and above the
+    vocabulary, a pattern twice in the batch."""
+    k = SEARCH_K
+    rng = np.random.default_rng(seed)
+    flat = corpus.reshape(-1)
+    rows = corpus if corpus.ndim == 2 else corpus[None, :]
+    pats = [flat[s : s + m].astype(np.int64)
+            for s, m in zip(rng.integers(0, flat.size - 3 * k, 24),
+                            rng.integers(1, 3 * k, 24), strict=True)]
+    for m in (1, k - 1, k, k + 1, 2 * k):
+        start = int(rng.integers(0, rows.shape[1] - m + 1))
+        pats.append(rows[0, start : start + m].astype(np.int64))
+    if corpus.ndim == 1:
+        ends = flat[flat.size - 2 * k :]  # the suffix ending on a boundary
+    else:
+        ends = corpus[1, :8]  # read 1 holds 8 tokens: two whole levels
+    pats += [
+        np.concatenate([ends, [1]]).astype(np.int64),
+        ends.astype(np.int64),
+        np.zeros(0, np.int64),
+        np.array([9], np.int64),
+        np.array([0], np.int64),
+        np.array([-2, 1], np.int64),
+        np.concatenate([flat, [1]]).astype(np.int64),
+        np.concatenate([flat[flat > 0], [1]]).astype(np.int64),
+        pats[0].copy(),
+    ]
+    return pats
+
+
+def padded_patterns(pats):
+    """The live patterns as the engine pads them (tokens >= 1, or empty):
+    (rows (q, lmax), lengths (q,)) int64."""
+    live = [p for p in pats if p.size == 0 or p.min() >= 1]
+    lmax = max(1, max(p.size for p in live))
+    rows = np.zeros((len(live), lmax), np.int64)
+    for i, p in enumerate(live):
+        rows[i, : p.size] = p
+    return rows, np.array([p.size for p in live], np.int64)
+
+
+def search_args(engine, pats, upper: bool):
+    """``ops.pattern_search``'s arguments for one bound of the live ``pats``
+    on a ``ShardedSAEngine`` over an in-memory store: its padded corpus, SA,
+    LLCP/RLCP and round bound, and each row's range from the engine's
+    routing."""
+    import torch
+
+    rows, plen = (torch.from_numpy(a).to(engine.device)
+                  for a in padded_patterns(pats))
+    shard = engine._route(rows, plen, upper)
+    st = engine.store
+    return (st.backend.padded, st.stride_bits, st.k, engine.sa, engine._llcp,
+            engine._rlcp, rows, plen, engine._bounds[shard] - 1,
+            engine._bounds[shard + 1], upper, engine._max_rounds)

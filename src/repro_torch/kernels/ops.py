@@ -56,3 +56,16 @@ def pattern_cmp(sfx, pat, start, stop, block: int = 256):
     from repro_torch.kernels.pattern_cmp import pattern_cmp as _pattern_cmp
 
     return _pattern_cmp(sfx, pat, start, stop, block=block)
+
+
+def pattern_search(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo, hi,
+                   upper, rounds, block: int = 256):
+    """The whole Manber–Myers search of one bound for a batch (no Pallas
+    counterpart: it runs the rounds around ``pattern_cmp``'s compare)."""
+    if padded.device.type == "cpu":
+        return ref.pattern_search_ref(padded, stride_bits, k, sa, llcp, rlcp, pat,
+                                      plen, lo, hi, upper, rounds)
+    from repro_torch.kernels.pattern_cmp import pattern_search as _pattern_search
+
+    return _pattern_search(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo,
+                           hi, upper, rounds, block=block)

@@ -1,4 +1,5 @@
-"""CUDA kernel: the query engine's masked suffix-vs-pattern compare.
+"""CUDA kernels: the query engine's masked suffix-vs-pattern compare, and
+its whole search.
 
 Replaces the Pallas kernel ``repro/kernels/pattern_cmp.py::pattern_cmp``.
 Per row of the (B, K) suffix and pattern windows it reports ``[cmp,
@@ -12,6 +13,11 @@ dominates.  One warp per row with a ballot over 32 columns at a time; see
 the source for the rest of the design.  ``block`` keeps the JAX signature
 and default: here it is the CTA's thread count, ``block // 32`` warps
 (at least 1, at most 32), one row each.
+
+:func:`pattern_search` runs one bound of the engine's Manber–Myers search
+for every row of a batch in one launch (``kernels.ref.pattern_search_ref``
+is the plain version): no host read a round, no window gather.  Bound:
+latency, a row's 30-90 dependent loads (a warp a row); see the source.
 """
 from __future__ import annotations
 
@@ -64,3 +70,81 @@ def pattern_cmp(sfx: torch.Tensor, pat: torch.Tensor, start: torch.Tensor,
 
 
 pattern_cmp.launches = 0
+
+
+_SEARCH_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+
+
+def _check_search(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if not (t.is_cuda and t.dtype == dtype and tuple(t.shape) == tuple(shape)
+            and t.is_contiguous() and t.device == device):
+        raise ValueError(
+            f"pattern_search: {name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def pattern_search(padded: torch.Tensor, stride_bits: int, k: int,
+                   sa: torch.Tensor, llcp, rlcp, pat: torch.Tensor,
+                   plen: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   upper: bool, rounds: int, block: int = 256):
+    """One bound of every pattern row on one CUDA device: the corpus
+    zero-padded by ``k`` tokens, int32 ``(n + k,)`` (text) or ``(rows,
+    row_len + k)`` (reads); ``sa`` and ``llcp``/``rlcp`` (both None: no LCP)
+    int64 (n_sa,); ``pat`` (q, lmax), ``plen``, ``lo``, ``hi`` (q,) int64;
+    ``rounds`` the most search rounds a row can take.  Returns ``(bound (q,)
+    int64, levels (q, rounds) int32, active (q,) int32)``, as
+    ``kernels.ref.pattern_search_ref``."""
+    dev = padded.device
+    if not (padded.is_cuda and padded.dtype == torch.int32
+            and padded.dim() in (1, 2) and padded.is_contiguous()):
+        raise ValueError(
+            "pattern_search: the corpus must be a contiguous 1-D or 2-D int32 "
+            f"CUDA tensor, got {padded.dtype} {tuple(padded.shape)} on {dev}")
+    text = padded.dim() == 1
+    if not 1 <= k <= padded.shape[-1] or rounds < 1:
+        raise ValueError(f"pattern_search: k = {k} must be in [1, {padded.shape[-1]}] "
+                         f"and rounds = {rounds} at least 1")
+    if pat.dim() != 2:
+        raise ValueError(f"pattern_search: pat must be (q, lmax), got {tuple(pat.shape)}")
+    q, lmax = pat.shape
+    n_sa = sa.shape[0]
+    _check_search("sa", sa, torch.int64, (n_sa,), dev)
+    if (llcp is None) != (rlcp is None):
+        raise ValueError("pattern_search: give both llcp and rlcp, or neither")
+    if llcp is not None:
+        _check_search("llcp", llcp, torch.int64, (n_sa,), dev)
+        _check_search("rlcp", rlcp, torch.int64, (n_sa,), dev)
+    _check_search("pat", pat, torch.int64, (q, lmax), dev)
+    for name, t in (("plen", plen), ("lo", lo), ("hi", hi)):
+        _check_search(name, t, torch.int64, (q,), dev)
+    bound = torch.empty((q,), dtype=torch.int64, device=dev)
+    levels = torch.empty((q, rounds), dtype=torch.int32, device=dev)
+    active = torch.empty((q,), dtype=torch.int32, device=dev)
+    if q == 0:
+        return bound, levels, active
+    if text:
+        n, row_len, row_stride = padded.shape[0] - k, 0, 0
+    else:
+        n, row_len, row_stride = 0, padded.shape[1] - k, padded.shape[1]
+    warps = min(max(int(block) // 32, 1), 32)
+    fn = _build.launcher("pattern_cmp", "pattern_search_launch", _SEARCH_ARGTYPES)
+    err = fn(padded.data_ptr(), int(text), n, row_len, row_stride, int(stride_bits),
+             int(k), sa.data_ptr(), None if llcp is None else llcp.data_ptr(),
+             None if rlcp is None else rlcp.data_ptr(), pat.data_ptr(), lmax,
+             plen.data_ptr(), lo.data_ptr(), hi.data_ptr(), q, int(bool(upper)),
+             int(rounds), bound.data_ptr(), levels.data_ptr(), active.data_ptr(),
+             warps, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pattern_search launch failed: cudaError {err}")
+    pattern_search.launches += 1
+    return bound, levels, active
+
+
+pattern_search.launches = 0

@@ -4,10 +4,13 @@ Replaces the Pallas kernel ``repro/kernels/prefix_pack.py::prefix_pack``.
 For every position i it packs ``tokens[i:i+K]`` (0 past the end) into
 ``key_words`` int31 words.  Source: ``csrc/prefix_pack.cu``.
 
-Bound: memory (reads 4N bytes, writes 4·N·key_words bytes).  One CTA per
-block of ``block`` positions stages its tokens plus the K-1 token halo in
-shared memory once, so device memory sees each token about once instead of
-K times; see the source for the rest of the design.
+Bound: memory (reads 4N bytes, writes 4·N·key_words bytes).  ``block``
+keeps the JAX signature and meaning, the positions a tile: a persistent
+grid of CTAs of ``block / 8`` threads stages a tile plus the K-1 token halo
+in shared memory, 16 bytes a load where the tokens start on a 16-byte
+boundary (read from the pointer, as ``window_gather`` does), and a thread
+packs 8 consecutive positions, rolling each word one token a position; see
+the source for the rest of the design.
 """
 from __future__ import annotations
 
@@ -20,7 +23,14 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def _vector_path(tokens: torch.Tensor) -> bool:
+    """16-byte loads are safe: the tokens start on a 16-byte boundary (a
+    view such as ``tokens[1:]`` may start anywhere, so the pointer is
+    checked, not assumed)."""
+    return tokens.data_ptr() % 16 == 0
 
 
 def prefix_pack(tokens: torch.Tensor, cfg: SAConfig,
@@ -43,7 +53,7 @@ def prefix_pack(tokens: torch.Tensor, cfg: SAConfig,
     err = fn(tokens.data_ptr(), out.data_ptr(), n, k,
              cfg.resolved_chars_per_word(), cfg.key_words, cfg.vocab_size + 1,
              max(1, int(cfg.vocab_size).bit_length()),
-             int(cfg.packing != "base"), block,
+             int(cfg.packing != "base"), block, int(_vector_path(tokens)),
              torch.cuda.current_stream(tokens.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"prefix_pack launch failed: cudaError {err}")

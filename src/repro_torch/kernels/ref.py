@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
-from repro_torch.core.search import masked_cmp
+from repro_torch.core.search import bound_rounds, compare_levels, masked_cmp
+from repro_torch.core.store import padded_windows
 
 
 def prefix_pack_ref(tokens: torch.Tensor, cfg: SAConfig) -> torch.Tensor:
@@ -66,6 +67,42 @@ def pattern_cmp_ref(sfx, pat, start, stop):
     int32 inputs, ``matched`` cast back to int32 (the same wrap)."""
     cmp, matched = masked_cmp(*(t.to(torch.int32) for t in (sfx, pat, start, stop)))
     return torch.stack([cmp, matched.to(torch.int32)], dim=1)
+
+
+def _window_levels(padded: torch.Tensor, k: int) -> int:
+    """The most K-token window levels one compare can take in a corpus
+    zero-padded by K tokens (``CorpusStore.max_window_depth`` + 1)."""
+    max_len = padded.shape[0] - k if padded.dim() == 1 else padded.shape[1] - k + 1
+    return -(-max_len // k) + 3
+
+
+def pattern_search_ref(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo, hi,
+                       upper: bool, rounds: int):
+    """One Manber–Myers bound for every pattern row, as the engine's round
+    loop finds it over ``masked_cmp``: the corpus zero-padded by K tokens
+    (``InMemoryBackend.padded``; its dimension says text or reads), the SA and
+    its LLCP/RLCP (both None: no LCP) int64, pattern rows (q, lmax) and
+    lengths (q,) int64, the open ranges ``lo``/``hi`` (q,) int64 from the
+    engine's routing, ``rounds`` the most search rounds a row can take.
+
+    Returns ``(bound (q,) int64, levels (q, rounds) int32, active (q,)
+    int32)``: ``levels[i, r]`` is the window levels row i compared in round
+    r (0 where LLCP/RLCP decided it or the row was done), ``active[i]`` the
+    rounds row i took.
+    """
+    q = pat.shape[0]
+    levels = torch.zeros((q, rounds), dtype=torch.int32, device=sa.device)
+    active = torch.zeros((q,), dtype=torch.int32, device=sa.device)
+    max_levels = _window_levels(padded, k)
+
+    def compare(gidx, t0, rows, lv):
+        return compare_levels(
+            lambda g, d: padded_windows(padded, stride_bits, k, g, d), masked_cmp,
+            gidx, pat, plen, t0, rows, k, max_levels, levels=lv)
+
+    bound, _ = bound_rounds(sa, llcp, rlcp, lo.clone(), hi.clone(), upper, compare,
+                            record=(levels, active))
+    return bound, levels, active
 
 
 # rows whose ranks merge_path_ranks_ref counts at once

@@ -9,10 +9,15 @@ a batch, LLCP/RLCP bounds from the LCP array, a byte-budgeted result cache.
 Its state lives on the store's device: ``sa``, ``lcp``, LLCP/RLCP and every
 per-round vector (``lo``, ``hi``, ``l``, ``r``, ``t``, ``undecided``) are
 tensors there, and patterns are padded into one ``(q, lmax)`` int64 tensor.
-Each round issues one compare for all live rows: the hand-written CUDA
-``pattern_cmp`` kernel under ``use_pallas`` (its plain version for CPU
-tensors), :func:`repro_torch.core.search.masked_cmp` otherwise.  The public
-types stay the JAX package's: numpy counts and positions, tuple lists.
+Under ``use_pallas`` over an in-memory backend a bound is one launch of the
+hand-written ``pattern_search`` kernel, which runs every round of every row
+on the card (its plain version, the round loop, for CPU tensors); the
+counters are rebuilt from its record of window levels.  Otherwise each
+round issues one compare for all live rows: the ``pattern_cmp`` kernel
+under ``use_pallas`` (a chunked backend, whose cache counters follow its
+calls, and the routing to shards),
+:func:`repro_torch.core.search.masked_cmp` without.  The public types stay
+the JAX package's: numpy counts and positions, tuple lists.
 
 :class:`SuffixArrayIndex` builds with the post-hoc LCP array on the card by
 default, saves and opens the index directories of
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
-from repro_torch.core.search import masked_cmp
+from repro_torch.core.search import bound_rounds, compare_levels, masked_cmp
 from repro_torch.core.store import (
     ChunkedFileBackend,
     CorpusStore,
@@ -104,10 +109,6 @@ def _as_batch(patterns) -> Tuple[List[np.ndarray], bool]:
     return [np.asarray(p, np.int64).ravel() for p in seq], False
 
 
-def _nonzero(mask: torch.Tensor) -> torch.Tensor:
-    return torch.nonzero(mask).squeeze(1)
-
-
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -156,6 +157,8 @@ class ShardedSAEngine:
         self.num_shards = max(1, min(int(num_shards), max(n, 1)))
         s = self.num_shards
         self.bounds = np.array([i * n // s for i in range(s + 1)], np.int64)
+        # the most rounds a bound takes: ceil(log2(largest shard + 1))
+        self._max_rounds = int(np.diff(self.bounds).max(initial=0)).bit_length() + 1
         self._bounds = torch.from_numpy(self.bounds).to(dev)
         # splitters: the first suffix of every shard but the first
         self.splitters = self.sa[self._bounds[1:-1]]
@@ -242,41 +245,19 @@ class ShardedSAEngine:
         pi: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Trichotomy of suffix(gidx[i]) vs pattern ``pi[i]``, starting from
-        ``t0[i]`` already-matched tokens.
+        ``t0[i]`` already-matched tokens (:func:`compare_levels` over the
+        store's fetches).
 
         Returns ``(cmp, t)``: cmp in {-1, 0, +1} with 0 = the pattern is a
         prefix of the suffix, and t = matched tokens (capped at the pattern
         length).  One store fetch and one batched compare per window level
         still in play.
         """
-        dev = self.device
-        q = gidx.shape[0]
         if pi is None:
-            pi = torch.arange(q, device=dev)
-        plen = pat_len[pi]
-        k = self.store.k
-        cols_k = torch.arange(k, dtype=torch.int64, device=dev)
-        cmp = torch.zeros(q, dtype=torch.int32, device=dev)
-        t = t0.clone()
-        undecided = t < plen  # t0 == plen: fully matched already
-        for _ in range(self.store.max_window_depth + 1):
-            idx = _nonzero(undecided)
-            if idx.numel() == 0:
-                return cmp, t
-            ti, pli = t[idx], plen[idx]
-            lv = ti // k
-            win = self.store.fetch_windows(gidx[idx], lv)
-            start = ti - lv * k
-            stop = torch.clamp(pli - lv * k, max=k)
-            cols = lv[:, None] * k + cols_k[None, :]
-            cc = torch.clamp(cols, max=pat_rows.shape[1] - 1)
-            pw = torch.where(cols < pli[:, None], pat_rows[pi[idx][:, None], cc], 0)
-            c, m_in = self._cmp_rows(win, pw, start, stop)
-            t[idx] = ti + m_in
-            cmp[idx] = c
-            done = (c != 0) | (t[idx] >= pli)
-            undecided[idx[done]] = False
-        raise RuntimeError("batched compare overran the window bound")
+            pi = torch.arange(gidx.shape[0], device=self.device)
+        return compare_levels(self.store.fetch_windows, self._cmp_rows, gidx,
+                              pat_rows, pat_len, t0, pi, self.store.k,
+                              self.store.max_window_depth + 1)
 
     def _route(self, pat_rows: torch.Tensor, pat_len: torch.Tensor,
                upper: bool) -> torch.Tensor:
@@ -298,52 +279,52 @@ class ShardedSAEngine:
     def _bound_batch(self, pat_rows: torch.Tensor, pat_len: torch.Tensor,
                      upper: bool) -> torch.Tensor:
         """Vectorized Manber–Myers bound for every query at once
-        (``repro.serve.sa_engine.ShardedSAEngine._bound_batch``)."""
+        (``repro.serve.sa_engine.ShardedSAEngine._bound_batch``): under
+        ``use_pallas`` over an in-memory backend one ``pattern_search`` call
+        on the device, else the round loop (:func:`bound_rounds`), a batched
+        compare a round."""
         shard = self._route(pat_rows, pat_len, upper)
         lo = self._bounds[shard] - 1
         hi = self._bounds[shard + 1].clone()
-        l = torch.zeros_like(lo)
-        r = torch.zeros_like(lo)
-        use_lr = self._llcp is not None
-        while True:
-            act = _nonzero(hi - lo > 1)
-            if act.numel() == 0:
-                return hi
-            self.stats["search_rounds"] += 1
-            mid = (lo[act] + hi[act]) >> 1
-            la, ra = l[act], r[act]
-            right = torch.zeros(act.shape[0], dtype=torch.bool, device=self.device)
-            newl, newr = la.clone(), ra.clone()
-            if use_lr:
-                ne = la != ra
-                x = torch.where(la > ra, self._llcp[mid], self._rlcp[mid])
-                mx = torch.maximum(la, ra)
-                gt, ltm = ne & (x > mx), ne & (x < mx)
-                c1, c2 = la > ra, ra > la
-                # x beyond the deeper endpoint's agreement: mid sides with
-                # that endpoint (l/r carry over); x short of it: mid sides
-                # against it and its own lcp is exactly x.
-                right |= c1 & gt
-                newr = torch.where(c1 & ltm, x, newr)
-                right |= c2 & ltm
-                newl = torch.where(c2 & ltm, x, newl)
-                need = ~(gt | ltm)
-                t0 = torch.where(ne, mx, la)  # proven-equal prefix at the mid
-            else:
-                need = torch.ones(act.shape[0], dtype=torch.bool, device=self.device)
-                t0 = torch.minimum(la, ra)
-            ni = _nonzero(need)
-            if ni.numel():
-                c, t = self._compare_batch(self.sa[mid[ni]], pat_rows, pat_len,
-                                           t0[ni], pi=act[ni])
-                re = (c <= 0) if upper else (c < 0)
-                right[ni] = re
-                newl[ni] = torch.where(re, t, newl[ni])
-                newr[ni] = torch.where(re, newr[ni], t)
-            lo[act] = torch.where(right, mid, lo[act])
-            hi[act] = torch.where(right, hi[act], mid)
-            l[act] = torch.where(right, newl, la)
-            r[act] = torch.where(right, ra, newr)
+        if self.use_pallas and not self.store.backend.per_round:
+            return self._search_on_device(pat_rows, pat_len, lo, hi, upper)
+        hi, rounds = bound_rounds(
+            self.sa, self._llcp, self._rlcp, lo, hi, upper,
+            lambda g, t0, rows, _: self._compare_batch(g, pat_rows, pat_len, t0,
+                                                       pi=rows))
+        self.stats["search_rounds"] += rounds
+        return hi
+
+    def _search_on_device(self, pat_rows: torch.Tensor, pat_len: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor,
+                          upper: bool) -> torch.Tensor:
+        """One bound of every row in one ``pattern_search`` call (its plain
+        version for CPU tensors), and the counters the round loop would have
+        kept, rebuilt from the kernel's record with one reduction and one
+        host read: ``levels[i, r]`` windows of row i in round r make, for
+        each round r and level j, one fetch of ``m[r, j] = #{i : levels[i, r]
+        > j}`` windows and one compare."""
+        from repro_torch.kernels import ops as kops
+
+        store = self.store
+        bound, levels, active = kops.pattern_search(
+            store.backend.padded, store.stride_bits, store.k, self.sa, self._llcp,
+            self._rlcp, pat_rows, pat_len, lo, hi, upper, self._max_rounds,
+            block=self.block)
+        # levels sorted down each round: column r's entry t*cap is the levels
+        # (j) whose fetch m[r, j] takes more than t capacity rounds
+        top = torch.sort(levels, dim=0, descending=True).values.to(torch.int64)
+        rounds, compares, windows, peak, fetch_rounds = torch.stack([
+            active.max().to(torch.int64), top[0].sum(), top.sum(),
+            (levels > 0).sum(dim=0).max(),
+            top[:: store.request_capacity].sum()]).tolist()
+        if rounds > self._max_rounds:
+            raise RuntimeError(f"pattern_search: {rounds} rounds over the bound "
+                               f"{self._max_rounds}")
+        self.stats["search_rounds"] += rounds
+        self.stats["compare_rounds"] += compares
+        store.note_searched(windows, fetch_rounds, peak)
+        return bound
 
     # -- public batched queries ---------------------------------------------
     def ranges(self, patterns: Sequence) -> np.ndarray:

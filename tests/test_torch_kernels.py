@@ -45,6 +45,19 @@ def test_prefix_pack_ref_matches_repro(kw, n):
         got.numpy())
 
 
+@pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
+@pytest.mark.parametrize("name", cases.PACK_EDGE)
+def test_prefix_pack_ref_edges_match_repro(kw, name):
+    """``prefix_pack``'s edge cases (ragged lengths, views into their
+    storage, tokens outside [0, 2^bits)): the plain version, as the CUDA
+    kernel is held to on the card, equals the JAX package's reference."""
+    toks, off = cases.pack_edge_tokens(kw, name)
+    got = ops.prefix_pack(torch.from_numpy(toks)[off:], SAConfig(**kw),
+                          block=PACK_BLOCK)
+    want = jref.prefix_pack_ref(jnp.asarray(toks[off:]), RefConfig(**kw))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("case", GATHER_CASES, ids=GATHER_IDS)
 def test_window_gather_ref_matches_repro(case):
     corpus, rows, offs, k = gather_case(case)

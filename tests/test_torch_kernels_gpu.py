@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.config import SAConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import launch_counts, ops, ref
 from repro_torch.kernels import bitonic_sort as bs_mod
 from repro_torch.kernels import bucket_hist as bh_mod
 from repro_torch.kernels import merge_path as mp_mod
@@ -22,10 +22,12 @@ from repro_torch.kernels.cases import (
     CMP_EDGE_K, CMP_SHAPES, GATHER_CASES, GATHER_IDS, GATHER_LARGE,
     GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
     HIST_SHAPES, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
-    PACK_BLOCK, PACK_CFGS, PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES,
-    cmp_edge_inputs, cmp_inputs, fault_arrays, gather_case, hist_edge_inputs,
-    hist_inputs, merge_edge_inputs, merge_inputs, merge_run_edge_inputs,
-    merge_runs_inputs, pack_tokens, sort_inputs, sorted_rows)
+    PACK_BLOCK, PACK_CFGS, PACK_EDGE, PACK_IDS, PACK_LENGTHS, SEARCH_CFG,
+    SEARCH_CORPORA, SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs,
+    fault_arrays, gather_case, hist_edge_inputs, hist_inputs, merge_edge_inputs,
+    merge_inputs, merge_run_edge_inputs, merge_runs_inputs, pack_edge_tokens,
+    pack_tokens, search_args, search_corpus, search_patterns, sort_inputs,
+    sorted_rows)
 
 
 @pytest.fixture
@@ -42,6 +44,25 @@ def test_prefix_pack_kernel_on_card(cuda, kw, n):
     toks = torch.from_numpy(pack_tokens(kw, n)).to(cuda)
     before = pp_mod.prefix_pack.launches
     got = ops.prefix_pack(toks, SAConfig(**kw), block=PACK_BLOCK)
+    torch.cuda.synchronize()
+    assert pp_mod.prefix_pack.launches == before + 1
+    assert torch.equal(got, ref.prefix_pack_ref(toks, SAConfig(**kw)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
+@pytest.mark.parametrize("name", PACK_EDGE)
+@pytest.mark.parametrize("block", [PACK_BLOCK, 512, 60])
+def test_prefix_pack_kernel_edges_on_card(cuda, kw, name, block):
+    """Lengths no multiple of a thread's 8 positions or of a tile, views
+    that start 1 or 2 tokens into their storage (4-byte loads), tokens
+    outside [0, 2^bits) (the bit words packed directly), a tile of
+    ``block`` positions that is no multiple of 8 (rounded up to 64)."""
+    toks, off = pack_edge_tokens(kw, name)
+    toks = torch.from_numpy(toks).to(cuda)[off:]
+    assert pp_mod._vector_path(toks) is (off == 0)
+    before = pp_mod.prefix_pack.launches
+    got = ops.prefix_pack(toks, SAConfig(**kw), block=block)
     torch.cuda.synchronize()
     assert pp_mod.prefix_pack.launches == before + 1
     assert torch.equal(got, ref.prefix_pack_ref(toks, SAConfig(**kw)))
@@ -108,15 +129,81 @@ def test_index_kernel_and_plain_engines_agree_on_card(cuda):
     pats = [reads[i, o : o + m].astype(np.int64) for i, o, m in zip(
         rng.integers(0, 128, 60), rng.integers(0, 40, 60), rng.integers(0, 30, 60),
         strict=True)]
-    before = pc_mod.pattern_cmp.launches
+    before = launch_counts()
     got = idx.engine.ranges(pats)
-    assert pc_mod.pattern_cmp.launches > before
+    launched = launch_counts()
+    assert launched["pattern_search"] == before["pattern_search"] + 2  # a bound each
+    assert launched["pattern_cmp"] == before["pattern_cmp"]
     store = CorpusStore(None, idx.cfg, backend=idx.store.backend)
     plain = ShardedSAEngine(store, idx.sa, lcp=idx.lcp, use_pallas=False)
-    launched = pc_mod.pattern_cmp.launches
     np.testing.assert_array_equal(plain.ranges(pats), got)
-    assert pc_mod.pattern_cmp.launches == launched
+    assert launch_counts() == launched
     assert plain.engine_stats() == idx.engine.engine_stats()
+    for c in ("rounds", "requests", "request_bytes", "response_bytes",
+              "peak_windows"):
+        assert getattr(store, c) == getattr(idx.store, c), c
+
+
+@pytest.mark.gpu
+def test_chunked_index_kernel_and_plain_engines_agree_on_card(cuda, tmp_path):
+    """An index reopened on the chunked store keeps the round loop: its
+    cache counters follow one backend call a capacity chunk, so it compares
+    through ``pattern_cmp``, and equals the plain engine."""
+    import numpy as np
+
+    from repro_torch import ShardedSAEngine, SuffixArrayIndex
+    from repro_torch.core.store import CorpusStore
+    from repro_torch.data.corpus import synth_dna_reads
+
+    reads = synth_dna_reads(64, 48, seed=1, paired_end=True)
+    cfg = SAConfig(vocab_size=4, use_pallas=True)
+    SuffixArrayIndex.build(reads, cfg=cfg, index_dir=str(tmp_path / "ix"),
+                           device=cuda).close()
+    idx = SuffixArrayIndex.open(str(tmp_path / "ix"), device=cuda)
+    plain_idx = SuffixArrayIndex.open(str(tmp_path / "ix"), device=cuda)
+    rng = np.random.default_rng(1)
+    pats = [reads[i, o : o + m].astype(np.int64) for i, o, m in zip(
+        rng.integers(0, 128, 60), rng.integers(0, 40, 60), rng.integers(0, 30, 60),
+        strict=True)]
+    before = launch_counts()
+    got = idx.engine.ranges(pats)
+    launched = launch_counts()
+    assert launched["pattern_cmp"] > before["pattern_cmp"]
+    assert launched["pattern_search"] == before["pattern_search"]
+    plain = ShardedSAEngine(plain_idx.store, plain_idx.sa, lcp=plain_idx.lcp,
+                            use_pallas=False)
+    np.testing.assert_array_equal(plain.ranges(pats), got)
+    assert plain.engine_stats() == idx.engine.engine_stats()
+    assert (plain_idx.store.backend.cache_hits, plain_idx.store.backend.cache_misses) == (
+        idx.store.backend.cache_hits, idx.store.backend.cache_misses)
+    idx.close()
+    plain_idx.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_lcp", [True, False], ids=["lcp", "no-lcp"])
+@pytest.mark.parametrize("shards", [1, 2, 3])
+@pytest.mark.parametrize("name", SEARCH_CORPORA)
+def test_pattern_search_kernel_on_card(cuda, name, shards, with_lcp):
+    """The CUDA search against its plain version on the same card tensors,
+    at the CPU tests' corpora and boundary patterns, both bounds: bounds,
+    levels and rounds equal."""
+    from repro_torch import ShardedSAEngine
+    from repro_torch.core.lcp import lcp_from_sa
+    from repro_torch.core.store import CorpusStore
+
+    corpus, sa = search_corpus(name)
+    store = CorpusStore(corpus, SAConfig(**SEARCH_CFG), device=cuda)
+    eng = ShardedSAEngine(store, sa, lcp=lcp_from_sa(store, sa) if with_lcp else None,
+                          num_shards=shards, use_pallas=True)
+    for upper in (False, True):
+        args = search_args(eng, search_patterns(corpus), upper)
+        before = pc_mod.pattern_search.launches
+        got = ops.pattern_search(*args)
+        torch.cuda.synchronize()
+        assert pc_mod.pattern_search.launches == before + 1
+        for g, w in zip(got, ref.pattern_search_ref(*args), strict=True):
+            assert torch.equal(g, w)
 
 
 def _merge_path_on_card(cuda, keys, block):
