@@ -18,12 +18,15 @@ each of which fails loudly:
    ``merge_path_ranks``' edge rows, ``merge_path_ranks``' tiles of sorted
    runs, ``bucket_hist``'s edge splitters (keys at offsets 0 and 1), and the
    int32-max fault inputs of ``bucket_hist`` and ``bitonic_sort_tiles``
-   included, and ``window_gather``'s edge cases: ragged tiles, k = 1, 40,
+   included, ``bitonic_sort_tiles``' edge cases (tiles 1-4, ragged tiles of
+   4096 to 2^20, a tile above n, equal keys, int32 extremes, views) and its
+   tiles above 2048, and ``window_gather``'s edge cases: ragged tiles, k = 1, 40,
    100 and 1000, rows and offsets out of range, R·L = 0 and corpus views whose
    base is not 16-byte aligned) and at the full-size shapes of phases 5 and
    7 (for the last two: 2^26 Map records of the text cell, D = 512, tiles
-   of 1024), and time both, and for the last two the nearest composition of
-   PyTorch calls; ``window_gather`` also at 2^14 requests (about a
+   of 1024, and for ``bitonic_sort_tiles`` also 2^16 and 2^20, with its
+   CUDA launches a call), and time both, and for the last two the nearest
+   composition of PyTorch calls; ``window_gather`` also at 2^14 requests (about a
    device-merge tile's); ``merge_path_ranks`` also on full synthetic tiles (C = 4 x 4096,
    W = 4 and 23), random and as 4 sorted runs, timed beside
    ``torch.unique``'s inverse index (the same ranks on unique rows);
@@ -131,6 +134,8 @@ QUERIES = {READS_QUERY: (1 << 16, 24), TEXT_QUERY: (1 << 14, 16)}
 HOT_FRACTION = 0.25
 # phase 3: the partition and tile-sort kernels at full size (2^26 records)
 HIST_D, SORT_TILE = 512, 1024
+# bitonic_sort_tiles is also timed at larger tiles over the same records
+SORT_TILES = (SORT_TILE, 1 << 16, 1 << 20)
 # phase 9: the chunked store's cache for the reopened reads index (its
 # 0.8 GB corpus fits: a smaller cache reloads most chunks every search
 # round), and the streaming build's reads, cut from phase 8's OOC_READS
@@ -250,22 +255,31 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         check_bucket_hist(f"bucket_hist {name}",
                           bh_mod.bucket_hist(*args, block=block),
                           ref.bucket_hist_ref(*args))
-    sort_cases = [(f"n={n} tile={t}", cases.sort_inputs(n, t), t)
-                  for n, t in cases.SORT_SHAPES]
+    sort_cases = [(f"n={n} tile={t}", cases.sort_inputs(n, t), t, 0)
+                  for n, t in [*cases.SORT_SHAPES, *cases.SORT_LARGE]]
     arrays, tile = cases.fault_arrays(cases.SORT_FAULT)
-    sort_cases.append(("int32-max fault input", list(arrays.values()), tile))
-    for name, arrays, tile in sort_cases:
+    sort_cases.append(("int32-max fault input", list(arrays.values()), tile, 0))
+    for name in cases.SORT_EDGE:
+        *arrays, tile, offset = cases.sort_edge_inputs(name)
+        sort_cases.append((f"edge {name}", arrays, tile, offset))
+    for name, arrays, tile, offset in sort_cases:
         args = [torch.from_numpy(a).to(dev) for a in arrays]
-        check_sorted_tiles(f"bitonic_sort_tiles {name}",
-                           bs_mod.bitonic_sort_tiles(*args, tile=tile),
-                           ref.bitonic_sort_tiles_ref(*args, tile))
+        if offset:  # columns as views `offset` elements into their storage
+            args = [torch.cat([a.new_zeros(offset), a])[offset:] for a in args]
+        bs_mod.bitonic_sort_tiles.cuda_launches = 0
+        got = bs_mod.bitonic_sort_tiles(*args, tile=tile)
+        check_sorted_tiles(f"bitonic_sort_tiles {name} (CUDA launches "
+                           f"{bs_mod.bitonic_sort_tiles.cuda_launches}, 16-byte "
+                           f"path {bs_mod._vector_path(*args)})",
+                           got, ref.bitonic_sort_tiles_ref(*args, tile))
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes, "
         "prefix_pack's edge lengths, views and wide tokens, pattern_search on "
         "the CPU tests' corpora, "
         "window_gather's edge cases (misaligned views included), "
         "the edge rows of pattern_cmp and merge_path_ranks, merge_path_ranks' "
-        "tiles of sorted runs, bucket_hist's edge splitters and the int32-max "
-        "fault inputs of bucket_hist and bitonic_sort_tiles")
+        "tiles of sorted runs, bucket_hist's edge splitters, the int32-max "
+        "fault inputs of bucket_hist and bitonic_sort_tiles, and "
+        "bitonic_sort_tiles' edge cases and tiles above 2048")
 
     out = {}
     # prefix_pack at the text Map's shape: the 2^26 tokens plus the K-token halo
@@ -461,15 +475,14 @@ def check_sorted_tiles(name, got, want):
 def sort_kernels_full_size(records):
     """``bucket_hist`` and ``bitonic_sort_tiles`` on 2^26 Map records of
     the text cell: D = 512 with 511 sorted sampled splitters, and tiles of
-    1024 with each record's index as its value.  Neither kernel lies on a
-    path of ``src/repro``; ``library_ms`` times the nearest composition of
-    PyTorch calls (one call computes neither function)."""
+    1024, 2^16 and 2^20 with each record's index as its value (the kernel's
+    entry holds tile 1024 and, under ``tiles``, the others).  Neither kernel
+    lies on a path of ``src/repro``; ``library_ms`` times the nearest
+    composition of PyTorch calls (one call computes neither function)."""
     import torch
 
-    from repro_torch.kernels import bitonic_sort as bs_mod
     from repro_torch.kernels import bucket_hist as bh_mod
     from repro_torch.kernels import ref
-    from repro_torch.kernels.cases import sorted_rows
 
     dev = records.device
     n = records.shape[0]
@@ -507,29 +520,59 @@ def sort_kernels_full_size(records):
     del got, want, lib
 
     val = torch.arange(n, dtype=torch.int32, device=dev)
-    got = bs_mod.bitonic_sort_tiles(kh, kl, val)
-    want = ref.bitonic_sort_tiles_ref(kh, kl, val, SORT_TILE)
-    check_sorted_tiles("bitonic_sort_tiles full size", got, want)
+    tiles = {}
+    for tile in SORT_TILES:
+        tiles[tile] = sort_timing(kh, kl, val, tile)
+        log(f"bitonic_sort_tiles tile={tile}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in tiles[tile].items()))
+    out["bitonic_sort"] = dict(tiles[SORT_TILE], tiles={
+        str(t): {k: v for k, v in o.items() if k.endswith(("ms", "launches"))}
+        for t, o in tiles.items() if t != SORT_TILE})
+    return out
+
+
+def sort_timing(kh, kl, val, tile):
+    """``bitonic_sort_tiles`` at one ``tile`` over the columns: held to the
+    plain version, then its CUDA-event time, the plain
+    version's and the library composition's (``torch.sort`` of the folded
+    (N / tile, tile) view and a ``gather``), and the CUDA launches of the
+    first call, as the wrapper counts them."""
+    import torch
+
+    from repro_torch.kernels import bitonic_sort as bs_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cases import sorted_rows
+
+    n = kh.shape[0]
+    bs_mod.bitonic_sort_tiles.cuda_launches = 0
+    got = bs_mod.bitonic_sort_tiles(kh, kl, val, tile)
+    cuda_launches = bs_mod.bitonic_sort_tiles.cuda_launches
+    want = ref.bitonic_sort_tiles_ref(kh, kl, val, tile)
+    check_sorted_tiles(f"bitonic_sort_tiles full size, tile {tile}", got, want)
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+              max_abs_err(sorted_rows(*got), sorted_rows(*want)))
+    del got, want
 
     def sort_library():
-        keys, idx = torch.sort(ref._fold(kh, kl).view(-1, SORT_TILE), dim=1)
-        return keys, torch.gather(val.view(-1, SORT_TILE), 1, idx)
+        keys, idx = torch.sort(ref._fold(kh, kl).view(-1, tile), dim=1)
+        return keys, torch.gather(val.view(-1, tile), 1, idx)
 
-    # bytes: three int32 columns read and written; operations: one compare
-    # per compare-exchange of the network, log2(T)(log2(T)+1)/2 stages of
-    # n/2 pairs
-    lg = SORT_TILE.bit_length() - 1
+    # bytes: three int32 columns read and written once; operations: one
+    # compare per compare-exchange of the network, log2(T)(log2(T)+1)/2
+    # stages of n/2 pairs
+    lg = tile.bit_length() - 1
     bound_ms, bound_by = byte_or_op_bound(24 * n, n // 2 * lg * (lg + 1) // 2)
-    out["bitonic_sort"] = dict(
-        max_abs_err=max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
-                        max_abs_err(sorted_rows(*got), sorted_rows(*want))),
-        ms=time_ms(lambda: bs_mod.bitonic_sort_tiles(kh, kl, val), 20),
-        plain_ms=time_ms(lambda: ref.bitonic_sort_tiles_ref(kh, kl, val, SORT_TILE), 3),
-        library_ms=time_ms(sort_library, 20),
-        library="torch.sort of the int64-folded (N/1024, 1024) view + torch.gather",
+    reps = 20 if tile <= SORT_TILE else 5
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: bs_mod.bitonic_sort_tiles(kh, kl, val, tile), reps),
+        plain_ms=time_ms(lambda: ref.bitonic_sort_tiles_ref(kh, kl, val, tile), 3),
+        library_ms=time_ms(sort_library, reps),
+        library=f"torch.sort of the int64-folded (N/{tile}, {tile}) view + torch.gather",
         bound_ms=bound_ms, bound_by=bound_by,
-        shape=f"N={n} Map records, tile={SORT_TILE}")
-    return out
+        cuda_launches=cuda_launches,
+        shape=f"N={n} Map records, tile={tile}")
 
 
 def merge_tile_keys(c, w, runs=None):
@@ -1814,6 +1857,7 @@ def main(argv) -> int:
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": kern[k].get("library_ms"),
          **({"library": kern[k]["library"]} if "library" in kern[k] else {}),
+         **{x: kern[k][x] for x in ("cuda_launches", "tiles") if x in kern[k]},
          **({"note": no_path[k]} if k in no_path else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {

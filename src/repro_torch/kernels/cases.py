@@ -49,6 +49,29 @@ HIST_FAULT = dict(  # bucket_hist, block 8
 SORT_FAULT = dict(  # bitonic_sort_tiles, tile 8
     key_hi=[INT32_MAX, 1, INT32_MAX], key_lo=[INT32_MAX, 0, INT32_MAX],
     val=[7, 8, 9], tile=8)
+# bitonic_sort_tiles' edge cases: name -> (n, tile, keys, offset).  keys:
+# "small" in [0, 50) as ``sort_inputs`` draws them, "wide" over all of
+# int32, "equal" one key for every row, "extremes" from int32 min, -1, 0, 1
+# and int32 max with the last rows real (int32 max, int32 max) rows of a
+# short tile; an offset puts every column that many elements into its
+# storage (a view the 16-byte path cannot take)
+SORT_EDGE = {
+    "tile1": (1000, 1, "small", 0),
+    "tile2": (1001, 2, "small", 0),
+    "tile4": (1003, 4, "small", 0),
+    "tile4096-ragged": (3 * 4096 + 1234, 4096, "wide", 0),
+    "tile2^16-ragged": (2 * 65536 + 777, 1 << 16, "wide", 0),
+    "tile2^20-ragged": ((1 << 20) + 4099, 1 << 20, "wide", 0),
+    "tile-above-n": (3, 1 << 16, "small", 0),
+    "tile-above-n-large": (100_000, 1 << 20, "wide", 0),
+    "all-equal": (5000, 1024, "equal", 0),
+    "extremes-short": (2 * 1024 + 700, 1024, "extremes", 0),
+    "extremes-short-8192": (3 * 8192 + 100, 8192, "extremes", 0),
+    "view1": (3000, 1024, "small", 1),
+    "view3-tile2^16": (70_001, 1 << 16, "wide", 3),
+}
+# tiles above the old 2048 limit that the CPU tests hold to the JAX package
+SORT_LARGE = [(5000, 4096), (3, 65536), (70000, 65536)]  # (n, tile)
 
 
 def pack_tokens(kw: dict, n: int) -> np.ndarray:
@@ -357,6 +380,25 @@ def sort_inputs(n: int, tile: int):
     kl = rng.integers(0, 50, size=(n,)).astype(np.int32)
     v = rng.permutation(n).astype(np.int32)
     return kh, kl, v
+
+
+def sort_edge_inputs(name: str):
+    """key_hi, key_lo, val (n,) int32 of a ``SORT_EDGE`` case, its tile and
+    offset; values a permutation.  Seeded by the case's n + tile."""
+    n, tile, keys, offset = SORT_EDGE[name]
+    rng = np.random.default_rng(n + tile)
+    if keys == "small":
+        return (*sort_inputs(n, tile), tile, offset)
+    if keys == "wide":
+        kh, kl = (rng.integers(-2**31, 2**31, size=(n,)).astype(np.int32)
+                  for _ in range(2))
+    elif keys == "equal":
+        kh, kl = np.full(n, 7, np.int32), np.full(n, -7, np.int32)
+    else:
+        ext = np.array([-INT32_MAX - 1, -1, 0, 1, INT32_MAX], np.int32)
+        kh, kl = rng.choice(ext, size=n), rng.choice(ext, size=n)
+        kh[-5:] = kl[-5:] = INT32_MAX
+    return kh, kl, rng.permutation(n).astype(np.int32), tile, offset
 
 
 def fault_arrays(case: dict):

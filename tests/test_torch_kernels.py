@@ -2,6 +2,9 @@
 Pallas kernels (interpret mode off the TPU), CPU dispatch and the registry.
 The CUDA kernels themselves are held to their plain versions on the card by
 ``tests/test_torch_kernels_gpu.py``."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch.config import SAConfig
 from repro_torch.core.search import masked_cmp
 from repro_torch.kernels import KERNEL_REGISTRY, launch_counts, ops, ref
+from repro_torch.kernels import bitonic_sort as bs_mod
 from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
 from repro_torch.kernels import window_gather as wg_mod
@@ -26,7 +30,8 @@ from repro_torch.kernels.cases import (
     HIST_FAULT, HIST_SHAPES, MERGE_RUN_EDGE, MERGE_RUNS, PACK_BLOCK, PACK_CFGS,
     PACK_IDS, PACK_LENGTHS, SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs,
     fault_arrays, gather_case, hist_edge_inputs, hist_inputs, merge_run_edge_inputs,
-    merge_runs, merge_runs_inputs, pack_tokens, sort_inputs, sorted_rows)
+    merge_runs, merge_runs_inputs, pack_tokens, sort_edge_inputs, sort_inputs,
+    sorted_rows)
 
 
 @pytest.mark.parametrize("kw", PACK_CFGS, ids=PACK_IDS)
@@ -216,6 +221,140 @@ def test_bitonic_sort_tiles_ref_at_the_int32_max_fault_input():
     assert got[2].tolist() == [8, 7, 9]
     pallas = ref_ops.bitonic_sort_tiles(*map(jnp.asarray, cols), tile=tile)
     assert np.asarray(pallas[2]).tolist() == [8, 7, cases.INT32_MAX]
+
+
+def _sorted_tiles_match(got, want):
+    """Keys row for row; values the same multiset within each key group."""
+    for g, w in zip(got[:2], want[:2], strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        sorted_rows(*got), sorted_rows(*(torch.from_numpy(np.array(x)) for x in want)))
+
+
+@pytest.mark.parametrize("n,tile", cases.SORT_LARGE)
+def test_bitonic_sort_tiles_above_2048_match_repro(n, tile):
+    """Tiles above 2048, which the CUDA wrapper once refused: the CPU op
+    equals ``repro.kernels.ref`` at each, and the Pallas network (interpret
+    mode) at (5000, 4096)."""
+    arrays = sort_inputs(n, tile)
+    before = launch_counts()
+    got = ops.bitonic_sort_tiles(*map(torch.from_numpy, arrays), tile=tile)
+    assert launch_counts() == before
+    jargs = tuple(map(jnp.asarray, arrays))
+    _sorted_tiles_match(got, jref.bitonic_sort_tiles_ref(*jargs, tile=tile))
+    if tile == 4096:
+        _sorted_tiles_match(got, ref_ops.bitonic_sort_tiles(*jargs, tile=tile))
+
+
+@pytest.mark.parametrize("name", cases.SORT_EDGE)
+def test_bitonic_sort_tiles_edges_match_repro(name):
+    """The CUDA kernel's edge cases (tiles 1-4, ragged tiles of 4096 to
+    2^20, a tile above n, equal keys, int32 extremes with real int32-max
+    rows in a short tile, views): the CPU op equals ``repro.kernels.ref``."""
+    kh, kl, v, tile, offset = sort_edge_inputs(name)
+    cols = [torch.from_numpy(np.concatenate([np.zeros(offset, np.int32), a]))[offset:]
+            for a in (kh, kl, v)]
+    before = launch_counts()
+    got = ops.bitonic_sort_tiles(*cols, tile=tile)
+    assert launch_counts() == before
+    _sorted_tiles_match(got, jref.bitonic_sort_tiles_ref(
+        *map(jnp.asarray, (kh, kl, v)), tile=tile))
+
+
+def _network_stages(steps):
+    """The (k, j, flip) stages a launch plan runs, in order: a sort of 2^lt
+    runs every merge up to 2^lt; a pass its bits of the current merge."""
+    stages, s = [], 0
+    for step in steps:
+        if step[0] == "sort":
+            for s in range(1, step[1] + 1):
+                stages.append((1 << s, 1 << (s - 1), True))
+                stages += [(1 << s, 1 << b, False) for b in range(s - 2, -1, -1)]
+            continue
+        _, lo, g, flip = step
+        if flip:
+            s = lo + g
+        bits = range(lo + g - 1, lo - 1, -1)
+        stages += [(1 << s, 1 << b, flip and b == s - 1) for b in bits]
+    return stages
+
+
+def _replay(keys, vals, n, steps):
+    """The plan's stages as plain compare-exchanges on numpy: the smaller key
+    to the lower row, rows past n +inf (never swapped in: a swap needs a
+    strictly greater key)."""
+    lt = max(step[1] if step[0] == "sort" else step[1] + step[2] for step in steps)
+    size = -(-n // (1 << lt)) << lt
+    k = np.full(size, np.iinfo(np.int64).max, np.int64)
+    v = np.zeros(size, np.int64)
+    k[:n], v[:n] = keys, vals
+    idx = np.arange(size)
+    for kk, j, flip in _network_stages(steps):
+        lower = idx[(idx & j) == 0]
+        upper = lower ^ (kk - 1) if flip else lower + j
+        swap = k[lower] > k[upper]
+        a, b = lower[swap], upper[swap]
+        k[a], k[b] = k[b], k[a].copy()
+        v[a], v[b] = v[b], v[a].copy()
+    return k[:n], v[:n]
+
+
+@pytest.mark.parametrize("lts", [range(0, 13), range(13, 17), range(17, 21)],
+                         ids=["in-cta", "2^13-2^16", "2^17-2^20"])
+def test_bitonic_sort_plan_is_the_network(lts):
+    """For tiles 1 ... 2^20, the launch plan runs exactly the bitonic
+    network's (k, j) stages, each launch within what its kernel takes: a
+    sort up to T_c, a flip pass of at most log2(T_c) - 1 - MIN_SEG bits, a
+    half-cleaner pass of at most log2(T_c) - MIN_SEG (or the in-CTA merge of
+    the bits below T_c).  A tile above n sorts n rows as one tile of the
+    power of two at or above n."""
+    log_tc = bs_mod.LOG_TC
+    for lt in lts:
+        tile = 1 << lt
+        steps = bs_mod.plan(tile, tile)
+        want = [(1 << s, 1 << b, b == s - 1)
+                for s in range(1, lt + 1) for b in range(s - 1, -1, -1)]
+        assert _network_stages(steps) == want
+        for step in steps:
+            if step[0] == "sort":
+                assert step[1] <= log_tc
+                continue
+            _, lo, g, flip = step
+            if flip:
+                assert 1 <= g <= log_tc - 1 - bs_mod.MIN_SEG and lo >= log_tc
+            elif lo:
+                assert 1 <= g <= log_tc - bs_mod.MIN_SEG and lo >= log_tc
+            else:
+                assert g == log_tc
+        for n in {tile // 2 + 1, tile}:
+            assert bs_mod.plan(n, 1 << 40) == steps
+    assert bs_mod.plan(1, 1 << 20) == [("sort", 0)]
+
+
+def test_bitonic_sort_plan_constants_are_the_sources():
+    """``plan``'s T_c and run length are the CUDA source's kBigLogC and
+    kMinSeg (the wrapper also checks the built library's on the card)."""
+    src = (Path(bs_mod.__file__).parent / "csrc" / "bitonic_sort.cu").read_text()
+    consts = {}
+    for name, value in re.findall(r"constexpr int (\w+) = (\w+);", src):
+        consts[name] = int(value) if value.isdigit() else consts[value]
+    assert (consts["kBigLogC"], consts["kMinSeg"]) == (bs_mod.LOG_TC, bs_mod.MIN_SEG)
+
+
+@pytest.mark.parametrize("n,tile", [
+    (1, 1), (1000, 1), (37, 8), (300, 64), (1000, 1 << 10), (5000, 1 << 12),
+    (20_000, 1 << 14), (3, 1 << 16), (70_000, 1 << 16), (600_000, 1 << 20)])
+def test_bitonic_sort_plan_replay_sorts(n, tile):
+    """Replayed with plain compare-exchanges, the launch plan sorts random
+    tiles (short last tile included) to ``repro.kernels.ref``'s keys, and
+    keeps every value of each key group.  Tile 2^20 splits a merge's passes
+    at j >= T_c in two."""
+    kh, kl, v = sort_inputs(n, tile)
+    keys = ref._fold(torch.from_numpy(kh), torch.from_numpy(kl)).numpy()
+    got_k, got_v = _replay(keys, v, n, bs_mod.plan(n, tile))
+    got = [(got_k >> 32), (got_k & 0xFFFFFFFF) - (1 << 31), got_v]
+    want = jref.bitonic_sort_tiles_ref(*map(jnp.asarray, (kh, kl, v)), tile=tile)
+    _sorted_tiles_match([torch.from_numpy(c.astype(np.int32)) for c in got], want)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -23,11 +23,12 @@ from repro_torch.kernels.cases import (
     GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
     HIST_SHAPES, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
     PACK_BLOCK, PACK_CFGS, PACK_EDGE, PACK_IDS, PACK_LENGTHS, SEARCH_CFG,
-    SEARCH_CORPORA, SORT_FAULT, SORT_SHAPES, cmp_edge_inputs, cmp_inputs,
+    SEARCH_CORPORA, SORT_EDGE, SORT_FAULT, SORT_LARGE, SORT_SHAPES,
+    cmp_edge_inputs, cmp_inputs,
     fault_arrays, gather_case, hist_edge_inputs, hist_inputs, merge_edge_inputs,
     merge_inputs, merge_run_edge_inputs, merge_runs_inputs, pack_edge_tokens,
-    pack_tokens, search_args, search_corpus, search_patterns, sort_inputs,
-    sorted_rows)
+    pack_tokens, search_args, search_corpus, search_patterns, sort_edge_inputs,
+    sort_inputs, sorted_rows)
 
 
 @pytest.fixture
@@ -336,12 +337,22 @@ def test_bucket_hist_kernel_edge_inputs_on_card(cuda, name, offset):
     assert int(got[1].sum()) == kh.shape[0]
 
 
-def _bitonic_on_card(cuda, arrays, tile):
+def _bitonic_on_card(cuda, arrays, tile, offset=0):
+    """One call of the op on the columns (each ``offset`` elements into its
+    storage): one count on ``launches``, however many CUDA launches its plan
+    makes, and one on ``cuda_launches`` for each step of the plan; keys and
+    values as the plain version's."""
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    if offset:
+        args = [torch.cat([a.new_zeros(offset), a])[offset:] for a in args]
+    n = args[0].shape[0]
     before = bs_mod.bitonic_sort_tiles.launches
+    before_cuda = bs_mod.bitonic_sort_tiles.cuda_launches
     got = ops.bitonic_sort_tiles(*args, tile=tile)
     torch.cuda.synchronize()
     assert bs_mod.bitonic_sort_tiles.launches == before + 1
+    assert bs_mod.bitonic_sort_tiles.cuda_launches == before_cuda + (
+        len(bs_mod.plan(n, tile)) if n else 0)
     want = ref.bitonic_sort_tiles_ref(*args, tile)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     # values: the same multiset within every key group
@@ -362,3 +373,30 @@ def test_bitonic_sort_kernel_fault_input_on_card(cuda):
     arrays, tile = fault_arrays(SORT_FAULT)
     got = _bitonic_on_card(cuda, list(arrays.values()), tile)
     assert sorted(got[2].tolist()[1:]) == [7, 9] and got[2].tolist()[0] == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SORT_EDGE)
+def test_bitonic_sort_kernel_edges_on_card(cuda, name):
+    """Tiles 1-4; ragged tiles of 4096, 2^16 and 2^20 (global passes and
+    in-CTA merges); a tile above n; all-equal keys; int32 extremes with real
+    (int32 max, int32 max) rows in a short tile; views off the 16-byte
+    path."""
+    kh, kl, v, tile, offset = sort_edge_inputs(name)
+    _bitonic_on_card(cuda, [kh, kl, v], tile, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,tile", SORT_LARGE)
+def test_bitonic_sort_kernel_large_tiles_on_card(cuda, n, tile):
+    _bitonic_on_card(cuda, sort_inputs(n, tile), tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [0, 3, 1000, -4])
+def test_bitonic_sort_kernel_refuses_other_tiles(cuda, tile):
+    x = torch.zeros(16, dtype=torch.int32, device=cuda)
+    before = bs_mod.bitonic_sort_tiles.launches
+    with pytest.raises(ValueError, match="power of two"):
+        bs_mod.bitonic_sort_tiles(x, x, x, tile=tile)
+    assert bs_mod.bitonic_sort_tiles.launches == before
