@@ -5,6 +5,7 @@
     python3 chip_smoke.py --stream-reads 5000 12000  # phase 9's streaming build only
     python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
     python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
+    python3 chip_smoke.py --merges 5000 20  # phase 10 only, at these sizes
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -83,10 +84,28 @@ each of which fails loudly:
    ``SuffixArrayIndex.build(index_dir=...)``: its SA and LCP must equal
    the in-memory build's, ``peak_resident_bytes`` stay within the budget
    and ``merge_path`` launch.  Index directories live in a temporary
-   directory that the phase removes.
+   directory that the phase removes;
+10. the k-way and re-rank merges and the retrying store on the card:
+   ``MERGE_READS`` reads and a 2^``MERGE_TEXT_LOG2``-token text, S = 4,
+   LCP, each built with ``merge_algorithm="merge_path"`` (kernels; the
+   reference), ``"kway"`` (kernels, plain) and ``"rerank"`` (kernels,
+   plain, and kernels with ``merge_backend="device"``).  Every build's SA
+   and LCP must equal the ``merge_path`` build's; kernels and plain give
+   the same Footprint and stats (wall times aside); nothing dropped or
+   unresolved, ``peak_records <= capacity_records``; ``prefix_pack``
+   launches in the text kernel builds, ``window_gather`` in the reads
+   kernel builds, nothing on the plain path.  Then the reads are built
+   from a ``FlakyBackend`` on the card (every third store call fails
+   twice) with ``store_retries=3``: the fault-free build's SA, LCP,
+   Footprint and stats (walls and retry counters aside), with faults
+   injected and retried.  Last, ``kway`` and ``rerank`` stream
+   ``STREAM_MERGE_READS`` reads from the chunked store at a quarter of the
+   corpus bytes: the in-memory build's SA, ``peak_resident_bytes`` within
+   the budget.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
+phases 1-2 and then phase 10 alone at those sizes (no result line).  Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -142,6 +161,13 @@ SORT_TILES = (SORT_TILE, 1 << 16, 1 << 20)
 # (the wall that forced the cut is in PERF.md)
 OPEN_CACHE_BYTES = 1 << 30
 STREAM_READS = 5_000
+# phase 10: the corpora of the k-way and re-rank merges, cut from 5 000 reads
+# and a 2^20 text (the k-way heap and its cursor's singleton fetches, and the
+# re-rank's splitter scans, are host work: the walls that forced the cuts are
+# in PERF.md), and the reads of their streaming runs
+MERGE_READS = 500
+MERGE_TEXT_LOG2 = 18
+STREAM_MERGE_READS = 500
 
 
 def log(msg: str) -> None:
@@ -1598,6 +1624,139 @@ def phase_streaming(dev, ooc_ref, reads=STREAM_READS):
     return counts
 
 
+def merge_build(name, label, corpus, alg, use_pallas, merge_backend="host", **sb_kw):
+    """One phase-10 out-of-core build of ``corpus`` (S = 4, LCP) through the
+    launcher's code path, its launch counts set to 0 just before and read
+    just after.  Returns (result, wall, launches)."""
+    import torch
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sa_build
+
+    cfg = sa_build.make_config("base", "cuda", use_pallas=use_pallas)
+    sb = SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True,
+                          merge_algorithm=alg, merge_backend=merge_backend, **sb_kw)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    res, dt = sa_build.run(corpus, cfg, "cuda", sb=sb)
+    launched = launch_counts()
+    st = res.stats
+    log(f"phase 10: {name} {alg} [{label}]: {dt:.3f} s wall, t_merge_s {st['t_merge_s']}, "
+        f"t_build_s {st['t_build_s']}, merge_fetch_rounds {st['merge_fetch_rounds']}, "
+        f"merge_fetch_requests {st['merge_fetch_requests']}, merge_fetch_bytes "
+        f"{st['merge_fetch_bytes']}, merge_cursor_peak_windows "
+        f"{st['merge_cursor_peak_windows']}, merge_pieces {st['merge_pieces']}, "
+        f"peak_resident_bytes {st['peak_resident_bytes']}; launches {launched}")
+    if st["dropped"] or st["unresolved"]:
+        raise AssertionError(f"phase 10: {name} {alg} [{label}]: {st}")
+    if not st["peak_records"] <= st["capacity_records"]:
+        raise AssertionError(f"phase 10: {name} {alg} [{label}]: peak_records over capacity")
+    if not use_pallas and any(launched.values()):
+        raise AssertionError(f"phase 10: {name} {alg} [{label}]: plain path launched {launched}")
+    return res, dt, launched
+
+
+def phase_merges(dev, reads=MERGE_READS, text_log2=MERGE_TEXT_LOG2,
+                 stream_reads=STREAM_MERGE_READS):
+    """Phase 10 (see the module docstring).  Returns the launches of each
+    kernel-path build, by build."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.core.store import FlakyBackend, InMemoryBackend
+    from repro_torch.data.corpus import synth_dna_reads, synth_token_corpus
+    from repro_torch.launch import sa_build
+
+    cells = [(f"reads {reads} x 200", synth_dna_reads(reads, FULL_READ_LEN, seed=0),
+              "window_gather"),
+             (f"text 2^{text_log2}", synth_token_corpus(1 << text_log2, 4, seed=0)[0],
+              "prefix_pack")]
+    builds = [("kway", "kernels", True, "host"), ("kway", "plain", False, "host"),
+              ("rerank", "kernels", True, "host"), ("rerank", "plain", False, "host"),
+              ("rerank", "kernels, device merge", True, "device")]
+    counts, refs = {}, {}
+    for name, corpus, kernel in cells:
+        ref, _, launched = merge_build(name, "kernels", corpus, "merge_path", True)
+        refs[name] = ref
+        counts[f"{name} merge_path"] = launched
+        kept = {}
+        for alg, label, use_pallas, backend in builds:
+            res, _, launched = merge_build(name, label, corpus, alg, use_pallas, backend)
+            if not np.array_equal(res.suffix_array, ref.suffix_array):
+                raise AssertionError(f"phase 10: {name} {alg} [{label}]: SA != merge_path's")
+            if not np.array_equal(res.lcp, ref.lcp):
+                raise AssertionError(f"phase 10: {name} {alg} [{label}]: LCP != merge_path's")
+            if use_pallas:
+                if launched[kernel] <= 0:
+                    raise AssertionError(
+                        f"phase 10: {name} {alg} [{label}]: {kernel} not launched")
+                counts[f"{name} {alg} [{label}]"] = launched
+            if backend == "host":
+                kept[(alg, label)] = (dataclasses.asdict(res.footprint),
+                                      stats_without_walls(res.stats))
+            del res
+        for alg in ("kway", "rerank"):
+            if kept[(alg, "kernels")] != kept[(alg, "plain")]:
+                raise AssertionError(f"phase 10: {name} {alg}: kernel and plain paths "
+                                     "differ (Footprint or stats)")
+        log(f"phase 10: {name}: kway and rerank (host and device merge) SA and LCP == "
+            f"merge_path's; kernels == plain (Footprint, stats); 0 dropped, 0 unresolved, "
+            f"peak_records <= capacity_records; {kernel} launched on the kernel path")
+
+    # the reads again, from a store that fails every third call twice
+    name, corpus, _ = cells[0]
+    clean = refs[name]
+    flaky = FlakyBackend(InMemoryBackend(corpus, sa_build.make_config("base", "cuda"),
+                                         device=dev),
+                         fail_every=3, failures_per_call=2)
+    res, dt, launched = merge_build(name, "kernels, flaky store", flaky, "merge_path", True,
+                                    store_retries=3, store_backoff_s=0.0)
+    st = res.stats
+    retry = ("store_retry_attempts", "store_retried_calls")
+    if not (np.array_equal(res.suffix_array, clean.suffix_array)
+            and np.array_equal(res.lcp, clean.lcp)
+            and dataclasses.asdict(res.footprint) == dataclasses.asdict(clean.footprint)
+            and ({k: v for k, v in stats_without_walls(st).items() if k not in retry}
+                 == {k: v for k, v in stats_without_walls(clean.stats).items()
+                     if k not in retry})):
+        raise AssertionError("phase 10: the retried build != the fault-free build")
+    if not (flaky.injected > 0 and st["store_retry_attempts"] > 0
+            and st["store_retried_calls"] > 0 and launched["window_gather"] > 0):
+        raise AssertionError(f"phase 10: no fault injected or retried: {st}, {launched}")
+    counts[f"{name} merge_path [kernels, flaky store]"] = launched
+    log(f"phase 10: {name} from a flaky store with store_retries=3: {dt:.3f} s wall; "
+        f"injected {flaky.injected}, retry_attempts {st['store_retry_attempts']}, "
+        f"retried_calls {st['store_retried_calls']} (gather calls {flaky.gather_calls}, "
+        f"reads {flaky.read_calls}); SA, LCP, Footprint and stats == the fault-free "
+        f"build's (walls and retry counters aside)")
+    del res, clean, refs
+
+    # kway and rerank streaming from the chunked store under a budget
+    small = synth_dna_reads(stream_reads, FULL_READ_LEN, seed=0)
+    name = f"reads {stream_reads} x 200"
+    mem, _, _ = merge_build(name, "kernels, memory", small, "merge_path", True)
+    budget = small.size * 4 // 4
+    for alg in ("kway", "rerank"):
+        res, dt, launched = merge_build(
+            name, "kernels, streaming", small, alg, True, store_backend="chunked",
+            cache_budget_bytes=budget)
+        st = res.stats
+        if not np.array_equal(res.suffix_array, mem.suffix_array):
+            raise AssertionError(f"phase 10: streaming {alg}: SA != the in-memory build's")
+        if st["store_backend"] != "chunked" or st["peak_resident_bytes"] > budget:
+            raise AssertionError(f"phase 10: streaming {alg}: peak_resident_bytes "
+                                 f"{st['peak_resident_bytes']} > budget {budget}: {st}")
+        counts[f"{name} {alg} [kernels, streaming]"] = launched
+        log(f"phase 10: {name} {alg} streaming: {dt:.3f} s wall; peak_resident_bytes "
+            f"{st['peak_resident_bytes']} of budget {budget}, cache hits "
+            f"{st['store_cache_hits']} / misses {st['store_cache_misses']}; SA == the "
+            f"in-memory build's")
+    return counts
+
+
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
@@ -1745,7 +1904,9 @@ def main(argv) -> int:
     and then only phase 9's streaming build, once for each read count (a
     scaling run).  ``--merge-ab PARENT PAIRS``: phases 1-2 and then
     ``merge_ab``; ``--gather-ab PARENT ROUNDS``: phases 1-2 and then
-    ``gather_ab``.  None of these prints a result line."""
+    ``gather_ab``; ``--merges READS LOG2``: phases 1-2 and then phase 10 at
+    READS reads and a 2^LOG2-token text.  None of these prints a result
+    line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1787,6 +1948,12 @@ def main(argv) -> int:
         gather_ab(argv[1], int(argv[2]))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv[:1] == ["--merges"] and len(argv) == 3:
+        t0 = time.perf_counter()
+        phase_merges(dev, int(argv[1]), int(argv[2]))
+        log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1813,6 +1980,9 @@ def main(argv) -> int:
     counts.update(ooc_counts)
     counts.update(phase_streaming(dev, ooc_ref))
     kern["merge_path"] = tiles["largest"]
+    t0 = time.perf_counter()
+    counts.update(phase_merges(dev))
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",

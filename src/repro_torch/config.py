@@ -67,14 +67,15 @@ class SuperblockConfig:
     """Out-of-core superblock construction (see ``repro.config``).
 
     The port runs one block in core (with the post-hoc LCP array under
-    ``emit_lcp``) and a plan of more blocks through the merge-path merge
-    with the in-memory store, on either ``merge_backend``, at any
-    ``merge_tile`` and ``pipeline_depth``, with the LCP array emitted by the
-    merge.  ``merge_algorithm="kway"``/``"rerank"``, ``resume``,
-    ``sanitize`` and ``store_retries > 0`` are ROADMAP.md item 9b;
-    ``spill_dir``, ``write_manifest`` and the chunked store backend
-    (``store_backend="chunked"``, ``chunk_records``, ``cache_budget_bytes``)
-    are item 8.  The fields are kept whole so a JAX run's configuration
+    ``emit_lcp``) and a plan of more blocks through any ``merge_algorithm``
+    (``"merge_path"``, ``"kway"``, ``"rerank"``) on either
+    ``merge_backend``, at any ``merge_tile`` and ``pipeline_depth``, with
+    the LCP array emitted by the merge, on the in-memory or the chunked
+    store (``store_backend``, ``chunk_records``, ``cache_budget_bytes``),
+    into a ``spill_dir`` and, with ``write_manifest``, an index directory;
+    ``store_retries > 0`` retries transient store faults
+    (``store_backoff_s``).  ``resume`` and ``sanitize`` are ROADMAP.md
+    item 9b.  The fields are kept whole so a JAX run's configuration
     carries across unchanged.
     """
 

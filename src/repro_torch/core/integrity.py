@@ -10,9 +10,8 @@ build crash-safe (see ``docs/fault_tolerance.md``):
   same corrupt bytes (or, worse, a different wrong answer), so no retry
   layer may catch it.  :class:`TransientError` is the opposite contract —
   a fault that *may* succeed on retry (an injected store fault, a flaky
-  remote read).  The retry layers (``repro.core.store.RetryingBackend``;
-  in the port, ROADMAP.md item 9b) share this split so a corruption can
-  never be masked by a retry loop.
+  remote read).  The retry layers (``repro_torch.core.store.RetryingBackend``)
+  share this split so a corruption can never be masked by a retry loop.
 
 * **Checksums.**  Thin stdlib ``zlib.crc32`` helpers over bytes, arrays and
   files.  crc32 is not cryptographic — the threat model is torn writes,

@@ -12,24 +12,31 @@ bounded chunk at a time, so a round over 201 M suffixes never holds a window
 per capacity slot.
 
 Serving half (``StoreBackend``, ``InMemoryBackend``, ``ChunkedFileBackend``,
-``CorpusStore``).  The JAX package keeps these on the host; in the port the
-in-memory backend's padded corpus is a tensor on its device, and
-``CorpusStore`` takes and returns tensors there.  The chunked backend keeps
-the JAX package's design: the corpus on disk, an LRU cache of chunks on the
-host under ``cache_budget_bytes``; the store gathers from it one capacity
-chunk a call, as the JAX store does (so its cache counters are the JAX
-package's), and moves each batch of windows to its device in one copy.
-The query engine, the post-hoc LCP, the per-superblock builds and the
-out-of-core merge (``fetch_keys``, ``gather_keys`` + ``note_fetched``,
-``rank_windows``, ``mget_window_host``, the merge frontier) go through it,
-with the JAX package's traffic and residency counters.
+the proxies ``ThrottledBackend``, ``RetryingBackend`` and ``FlakyBackend``,
+``CorpusStore``, ``WindowCursor``).  The JAX package keeps these on the
+host; in the port the in-memory backend's padded corpus is a tensor on its
+device, and ``CorpusStore`` takes and returns tensors there.  The chunked
+backend keeps the JAX package's design: the corpus on disk, an LRU cache of
+chunks on the host under ``cache_budget_bytes``; the store gathers from it
+one capacity chunk a call, as the JAX store does (so its cache counters are
+the JAX package's), and moves each batch of windows to its device in one
+copy.  A proxy is called one capacity chunk a call too (so its call counts
+and fault ordinals are the JAX package's); over an in-memory backend each
+chunk is a gather on the device.  The query engine, the post-hoc LCP, the
+per-superblock builds and the out-of-core merge (``fetch_keys``,
+``gather_keys`` + ``note_fetched``, ``rank_windows``, ``mget_window_host``,
+the merge frontier) go through it, with the JAX package's traffic and
+residency counters.  ``WindowCursor``, the k-way merge's cache, keeps its
+packed keys on the host, where the merge's heap compares them.
 """
 from __future__ import annotations
 
 import math
+import operator
+import time
 from dataclasses import dataclass
 from collections import OrderedDict
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +44,11 @@ import torch
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
 from repro_torch.core.distributed import bucket_scatter, exchange, lex_order
+from repro_torch.core.integrity import (
+    DEFAULT_RETRYABLE,
+    CorruptionError,
+    TransientStoreError,
+)
 from repro_torch.core.types import WORD_BITS
 from repro_torch.device import resolve_device
 
@@ -274,6 +286,39 @@ def pack_keys(windows: torch.Tensor, cfg: SAConfig) -> torch.Tensor:
     return torch.stack(words, dim=-1)
 
 
+def _wrap_int32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def host_key_packer(cfg: SAConfig) -> Callable[[List[int]], Tuple[int, ...]]:
+    """A function that packs one K-token window (a list of ints) to its key
+    words as a tuple of ints: the words :func:`pack_keys` gives, computed
+    on the host (the exact value wrapped to int32 is the int64 sum's int32
+    cast)."""
+    cpw = cfg.resolved_chars_per_word()
+    spans = [(i * cpw, (i + 1) * cpw) for i in range(cfg.key_words)]
+    if cfg.packing == "base":
+        base = cfg.vocab_size + 1
+        place = [base ** e for e in range(cpw - 1, -1, -1)]
+
+        def pack(window: List[int]) -> Tuple[int, ...]:
+            return tuple([_wrap_int32(sum(map(operator.mul, window[lo:hi], place)))
+                          for lo, hi in spans])
+        return pack
+    bits = max(1, int(cfg.vocab_size).bit_length())
+
+    def pack_bits(window: List[int]) -> Tuple[int, ...]:
+        words = []
+        for lo, hi in spans:
+            acc = 0
+            for t in window[lo:hi]:
+                acc = (acc << bits) | t
+            words.append(_wrap_int32(acc << (31 - bits * cpw)))
+        return tuple(words)
+    return pack_bits
+
+
 def lex_less_rows(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise lexicographic compare of two (m, W) key-word matrices:
     ``(less, equal)`` bool vectors (``repro.core.store.lex_less_rows``)."""
@@ -303,9 +348,12 @@ class StoreBackend:
 
     device: torch.device
     # True for a backend whose counters and residency depend on its call
-    # pattern: the store then gathers from it one capacity chunk a call, on
-    # the host (``gather_host``), as the JAX store calls every backend
+    # pattern: the store then calls it one capacity chunk a call, as the
+    # JAX store calls every backend
     per_round = False
+    # True for a backend whose windows are made on the host (``gather_host``):
+    # the store gathers a batch there and copies it to the device once
+    host_windows = False
 
     def _init_geometry(self, text_mode: bool, items: int, row_len: int,
                        cfg: SAConfig) -> None:
@@ -339,6 +387,11 @@ class StoreBackend:
     def gather(self, gidx: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         """(m,) int64 global suffix ids -> (m, K) int32 windows at token
         offset ``depth * K`` into each suffix (0-padded past the end)."""
+        raise NotImplementedError
+
+    def window(self, gidx: int, depth: int) -> np.ndarray:
+        """One suffix's (K,) window at ``depth``, on the host: what
+        :meth:`gather` gives for one suffix, from one call."""
         raise NotImplementedError
 
     def read_items(self, lo: int, hi: int) -> np.ndarray:
@@ -394,6 +447,19 @@ class InMemoryBackend(StoreBackend):
         self.cache_hits += int(gidx.shape[0])  # always resident
         return padded_windows(self.padded, self.stride_bits, self.k, gidx, depth)
 
+    def window(self, gidx: int, depth: int) -> np.ndarray:
+        """A view of ``padded`` at offsets computed here, copied to the host
+        in one copy: no kernel is launched."""
+        self.cache_hits += 1
+        if self.text_mode:
+            pos = min(gidx + depth * self.k, self.n)
+            view = self.padded[pos : pos + self.k]
+        else:
+            off = min((gidx & ((1 << self.stride_bits) - 1)) + depth * self.k,
+                      self.row_len)
+            view = self.padded[gidx >> self.stride_bits, off : off + self.k]
+        return view.cpu().numpy()
+
     def read_items(self, lo: int, hi: int) -> np.ndarray:
         return self._corpus[lo:hi]
 
@@ -414,6 +480,7 @@ class ChunkedFileBackend(StoreBackend):
     """
 
     per_round = True
+    host_windows = True
 
     def __init__(self, path: str, cfg: SAConfig, cache_budget_bytes: int = 0,
                  verify: bool = True, device=None):
@@ -507,8 +574,179 @@ class ChunkedFileBackend(StoreBackend):
         win = self.gather_host(_host(gidx), _host(depth))
         return torch.from_numpy(win).to(self.device)
 
+    def window(self, gidx: int, depth: int) -> np.ndarray:
+        """:meth:`gather_host` of one suffix, in scalar arithmetic: one
+        cache access of its chunk."""
+        k = self.k
+        if self.text_mode:
+            pos = min(gidx + depth * k, self.n)
+            ci = min(pos // self.chunk_items, self.num_chunks - 1)
+            local = pos - ci * self.chunk_items  # the halo covers the tail
+            return self._chunk(ci)[local : local + k].copy()
+        row = gidx >> self.stride_bits
+        off = min((gidx & ((1 << self.stride_bits) - 1)) + depth * k, self.max_len - 1)
+        ci = row // self.chunk_items
+        out = np.zeros(k, np.int32)
+        n = max(0, min(k, self.row_len - off))  # zero-pad past the row end
+        out[:n] = self._chunk(ci)[row - ci * self.chunk_items, off : off + n]
+        return out
+
     def read_items(self, lo: int, hi: int) -> np.ndarray:
         return self._reader.read_items(lo, hi)
+
+
+class _ProxyBackend(StoreBackend):
+    """A backend around ``inner`` (``repro.core.store``'s proxy idiom):
+    geometry, cache counters and residency are the inner backend's, and
+    every data call passes through :meth:`_through`, which a proxy
+    overrides.  ``per_round``: the store calls a proxy one capacity chunk a
+    call, so its call counts are the JAX package's."""
+
+    per_round = True
+
+    def __init__(self, inner: StoreBackend):
+        self.inner = inner
+
+    def __getattr__(self, name: str):
+        return getattr(self.inner, name)
+
+    @property
+    def resident_bytes(self) -> int:
+        return self.inner.resident_bytes
+
+    @property
+    def host_windows(self) -> bool:
+        return self.inner.host_windows
+
+    def _through(self, kind: str, fn, *args):
+        return fn(*args)
+
+    def gather(self, gidx: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        return self._through("gather", self.inner.gather, gidx, depth)
+
+    def gather_host(self, gidx: np.ndarray, depth) -> np.ndarray:
+        return self._through("gather", self.inner.gather_host, gidx, depth)
+
+    def window(self, gidx: int, depth: int) -> np.ndarray:
+        return self._through("gather", self.inner.window, gidx, depth)
+
+    def read_items(self, lo: int, hi: int) -> np.ndarray:
+        return self._through("read", self.inner.read_items, lo, hi)
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+class ThrottledBackend(_ProxyBackend):
+    """Deterministic slow-medium proxy (``repro.core.store.ThrottledBackend``):
+    a fixed ``time.sleep`` before every gather and every ``read_items``
+    call, so a pipelined build's overlap is measured against a latency that
+    does not depend on the machine's load.  Counts ``gather_calls``,
+    ``read_calls``, ``throttled_calls`` and ``throttled_sleep_s``."""
+
+    def __init__(self, inner: StoreBackend, gather_delay_s: float = 0.0,
+                 read_delay_s: float = 0.0):
+        super().__init__(inner)
+        self.gather_delay_s = float(gather_delay_s)
+        self.read_delay_s = float(read_delay_s)
+        self.gather_calls = 0
+        self.read_calls = 0
+        self.throttled_calls = 0
+        self.throttled_sleep_s = 0.0
+
+    def _through(self, kind: str, fn, *args):
+        if kind == "gather":
+            self.gather_calls += 1
+            seconds = self.gather_delay_s
+        else:
+            self.read_calls += 1
+            seconds = self.read_delay_s
+        if seconds > 0:
+            time.sleep(seconds)
+            self.throttled_calls += 1
+            self.throttled_sleep_s += seconds
+        return fn(*args)
+
+
+class RetryingBackend(_ProxyBackend):
+    """Transparent retry proxy (``repro.core.store.RetryingBackend``).
+
+    A call that raises one of ``retryable`` (by default
+    :data:`~repro_torch.core.integrity.DEFAULT_RETRYABLE`) is retried up to
+    ``retries`` times with deterministic capped exponential backoff
+    (``backoff_s * 2**attempt``, at most ``max_backoff_s``; no jitter).
+    :class:`~repro_torch.core.integrity.CorruptionError` is never retried.
+    Counts ``retry_attempts`` (extra attempts), ``retried_calls`` (calls
+    that needed one) and ``gave_up`` (calls past the budget), apart from the
+    store's traffic counters; ``sleep`` is injectable.
+    """
+
+    def __init__(self, inner: StoreBackend, retries: int = 3,
+                 backoff_s: float = 0.01, max_backoff_s: float = 1.0,
+                 retryable=DEFAULT_RETRYABLE, sleep=time.sleep):
+        super().__init__(inner)
+        self.retries = int(retries)
+        self.backoff_s = float(backoff_s)
+        self.max_backoff_s = float(max_backoff_s)
+        self.retryable = tuple(retryable)
+        self._sleep = sleep
+        self.retry_attempts = 0
+        self.retried_calls = 0
+        self.gave_up = 0
+
+    def _through(self, kind: str, fn, *args):
+        attempt = 0
+        while True:
+            try:
+                return fn(*args)
+            except CorruptionError:
+                raise  # fatal by contract: see repro_torch.core.integrity
+            except self.retryable:
+                if attempt >= self.retries:
+                    self.gave_up += 1
+                    raise
+                if attempt == 0:
+                    self.retried_calls += 1
+                self.retry_attempts += 1
+                delay = min(self.backoff_s * (2 ** attempt), self.max_backoff_s)
+                if delay > 0:
+                    self._sleep(delay)
+                attempt += 1
+
+
+class FlakyBackend(_ProxyBackend):
+    """Deterministic fault injector (``repro.core.store.FlakyBackend``):
+    raises :class:`~repro_torch.core.integrity.TransientStoreError` on
+    scripted gathers and reads.  ``fail_every=N`` fails every Nth call (call
+    0 included), ``fail_gathers``/``fail_reads`` name ordinals; a failing
+    call fails ``failures_per_call`` times.  An injected failure does not
+    advance the ordinal, so the calls that reach ``inner`` are a fault-free
+    run's.  Counts ``gather_calls``, ``read_calls`` and ``injected``."""
+
+    def __init__(self, inner: StoreBackend, fail_gathers=(), fail_reads=(),
+                 fail_every: int = 0, failures_per_call: int = 1):
+        super().__init__(inner)
+        self.fail_gathers = {int(x) for x in fail_gathers}
+        self.fail_reads = {int(x) for x in fail_reads}
+        self.fail_every = int(fail_every)
+        self.failures_per_call = int(failures_per_call)
+        self.gather_calls = 0
+        self.read_calls = 0
+        self.injected = 0
+        self._fails: dict = {}
+
+    def _through(self, kind: str, fn, *args):
+        attr = "gather_calls" if kind == "gather" else "read_calls"
+        n = getattr(self, attr)
+        scripted = self.fail_gathers if kind == "gather" else self.fail_reads
+        hit = n in scripted or (self.fail_every > 0 and n % self.fail_every == 0)
+        c = self._fails.get((kind, n), 0)
+        if hit and c < self.failures_per_call:
+            self._fails[(kind, n)] = c + 1
+            self.injected += 1
+            raise TransientStoreError(f"injected {kind} fault at call {n} (#{c + 1})")
+        setattr(self, attr, n + 1)
+        return fn(*args)
 
 
 def _host(x) -> np.ndarray:
@@ -534,9 +772,8 @@ class CorpusStore:
     out-of-core merge registers with :meth:`add_frontier`.  From an
     in-memory backend a batch is gathered at once where the JAX store loops
     over capacity chunks, and the counters grow exactly as that loop grows
-    them; a ``per_round`` backend (the chunked one) is called one capacity
-    chunk at a time, as the JAX store calls it.  ``WindowCursor`` (the
-    k-way merge's cache) is ROADMAP.md item 9b.
+    them; a ``per_round`` backend (the chunked one, a proxy) is called one
+    capacity chunk at a time, as the JAX store calls it.
     """
 
     def __init__(self, corpus, cfg: SAConfig, request_capacity: int = 4096,
@@ -554,6 +791,7 @@ class CorpusStore:
         self.request_capacity = max(1, int(request_capacity))
         self.token_bytes = token_bytes(cfg.vocab_size)
         self.index_bytes = index_request_bytes(self.n, self.stride_bits)
+        self.pack_host = host_key_packer(cfg)
         # fetch accounting
         self.requests = 0
         self.request_bytes = 0
@@ -622,16 +860,31 @@ class CorpusStore:
         self._note_resident()
         return out
 
-    def _host_rounds(self, gidx, depth):
-        """The JAX store's capacity loop over a ``per_round`` backend:
-        yields ``(lo, hi, windows)`` of one host gather per
-        ``request_capacity`` requests."""
-        g = _host(gidx)
-        m = g.shape[0]
-        d = np.broadcast_to(_host(depth), (m,))
-        for lo in range(0, m, self.request_capacity):
-            hi = min(lo + self.request_capacity, m)
-            yield lo, hi, self.backend.gather_host(g[lo:hi], d[lo:hi])
+    def _round_windows(self, gidx: torch.Tensor, depth, each_round=None) -> torch.Tensor:
+        """The JAX store's capacity loop over a ``per_round`` backend: one
+        backend call per ``request_capacity`` requests, ``each_round()``
+        after each.  A ``host_windows`` backend gathers on the host and the
+        batch is copied to the device once; any other gathers on the
+        device."""
+        m = int(gidx.shape[0])
+        cap = self.request_capacity
+        if self.backend.host_windows:
+            g = _host(gidx)
+            d = np.broadcast_to(_host(depth), (m,))
+            win = np.zeros((m, self.k), np.int32)
+            for lo in range(0, m, cap):
+                win[lo : lo + cap] = self.backend.gather_host(g[lo : lo + cap],
+                                                              d[lo : lo + cap])
+                if each_round is not None:
+                    each_round()
+            return torch.from_numpy(win).to(self.device)  # one copy
+        d = self._depths(depth, m)
+        parts = []
+        for lo in range(0, m, cap):
+            parts.append(self.backend.gather(gidx[lo : lo + cap], d[lo : lo + cap]))
+            if each_round is not None:
+                each_round()
+        return torch.cat(parts)
 
     # -- batched fetch ------------------------------------------------------
     def fetch_windows(self, gidx, depth) -> torch.Tensor:
@@ -646,11 +899,8 @@ class CorpusStore:
         if m == 0:
             out = torch.zeros((0, self.k), dtype=torch.int32, device=self.device)
         elif self.backend.per_round:
-            host = np.zeros((m, self.k), np.int32)
-            for lo, hi, win in self._host_rounds(gidx, depth):
-                host[lo:hi] = win
-                self._note_resident()  # after every round, as the JAX store
-            out = torch.from_numpy(host).to(self.device)  # one copy
+            # residency noted after every round, as the JAX store notes it
+            out = self._round_windows(gidx, depth, each_round=self._note_resident)
             self._count_windows(m)
         else:
             out = self._gather(gidx, self._depths(depth, m))
@@ -708,10 +958,7 @@ class CorpusStore:
         if self.backend.per_round:
             # the worker-thread path: no residency noted here (SAL010);
             # note_fetched accounts it on the main thread
-            host = np.zeros((m, self.k), np.int32)
-            for lo, hi, w in self._host_rounds(gidx, depth):
-                host[lo:hi] = w
-            win = torch.from_numpy(host).to(self.device)  # one copy
+            win = self._round_windows(gidx, depth)
         else:
             win = self.backend.gather(gidx, self._depths(depth, m))
         return pack_keys(win, self.cfg), (win == 0).any(dim=1)
@@ -737,6 +984,14 @@ class CorpusStore:
         keys, ended = self.gather_keys(gidx, depth)
         self.note_fetched(keys.shape[0])
         return keys, ended
+
+    def fetch_key(self, gidx: int, depth: int) -> Tuple[Tuple[int, ...], bool]:
+        """One suffix's packed key words and end flag at ``depth``, on the
+        host (``WindowCursor``'s miss): :meth:`fetch_keys` of one suffix,
+        counted as that, from one backend call and one copy."""
+        win = self.backend.window(int(gidx), int(depth)).tolist()
+        self.note_fetched(1)
+        return self.pack_host(win), 0 in win
 
     def rank_windows(self, keys: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
         """Output ranks of candidate rows under (key words..., global index).
@@ -790,6 +1045,153 @@ class CorpusStore:
         self.retries += n_act - n_served
         self.peak_windows = max(self.peak_windows, n_served)
         return win, ok
+
+
+def _host_entries(keys: torch.Tensor, ended: torch.Tensor) -> List[Tuple[Tuple[int, ...], bool]]:
+    """``(key words, ended)`` cache entries of a fetched batch, copied to
+    the host in one copy."""
+    rows = torch.cat([keys.to(torch.int64), ended[:, None].to(torch.int64)],
+                     dim=1).cpu().tolist()
+    return [(tuple(r[:-1]), bool(r[-1])) for r in rows]
+
+
+class WindowCursor:
+    """Per-suffix progressive packed-key cache over a :class:`CorpusStore`
+    (``repro.core.store.WindowCursor``).
+
+    The k-way merge compares run heads over and over: a partition probe
+    compares a run member against a splitter, every heap sift two run
+    heads.  The cursor fetches a window once per (suffix, K-token depth)
+    and re-serves it for every later comparison, so store traffic is one
+    depth-0 window per suffix plus deeper windows down to the actual
+    tie-breaking depth.  Entries are the packed key words (as a tuple of
+    ints) and the end-of-suffix flag, kept on the host, where the merge's
+    heap compares them: a hit touches no device.  :meth:`prefetch` copies a
+    batch of fetched keys to the host once; a miss in :meth:`key` or
+    :meth:`less` is one singleton :meth:`CorpusStore.fetch_key` (one copy).
+    The cursor counts ``cached_windows``/``peak_cached_windows`` and
+    registers ``(key_words + 1) * 4`` bytes an entry with the store's
+    frontier (``CorpusStore.add_frontier``); :meth:`release` drops a
+    suffix's entries as the merge emits it, :meth:`release_all` every
+    entry (the streaming merge's reset between phases).
+    """
+
+    def __init__(self, store: CorpusStore):
+        self.store = store
+        self._win: dict = {}  # gidx -> [(key words, ended) at depth 0, 1, ...]
+        # one cached entry: key_words packed lanes + the ended flag lane
+        self.window_bytes = (store.key_words + 1) * 4
+        self.cached_windows = 0
+        self.peak_cached_windows = 0
+        self._max_depth = store.max_window_depth
+
+    def _account(self, delta: int) -> None:
+        self.cached_windows += delta
+        if delta > 0:
+            self.peak_cached_windows = max(self.peak_cached_windows,
+                                           self.cached_windows)
+        self.store.add_frontier(delta * self.window_bytes)
+
+    def prefetch(self, gidx) -> None:
+        """Batch-fetch depth-0 windows for every uncached suffix in ``gidx``
+        (a host array): one capacity-chunked store fetch, one copy."""
+        miss = [g for g in np.asarray(gidx, np.int64).tolist() if g not in self._win]
+        if not miss:
+            return
+        keys, ended = self.store.fetch_keys(
+            torch.tensor(miss, dtype=torch.int64, device=self.store.device), 0)
+        for g, entry in zip(miss, _host_entries(keys, ended), strict=True):
+            self._win[g] = [entry]
+        self._account(len(miss))
+
+    def _entry(self, gidx: int, depth: int) -> Tuple[Tuple[int, ...], bool]:
+        ws = self._win.get(gidx)
+        if ws is None:
+            ws = self._win[gidx] = []
+        while len(ws) <= depth:
+            ws.append(self.store.fetch_key(gidx, len(ws)))
+            self._account(1)
+        return ws[depth]
+
+    def key(self, gidx: int, depth: int) -> Tuple[np.ndarray, bool]:
+        """``(key words, ended)`` of ``gidx`` at ``depth`` (cached; fetched
+        on a miss, with every shallower depth missing)."""
+        words, ended = self._entry(int(gidx), int(depth))
+        return np.array(words, np.int32), ended
+
+    def _offer(self, gidx: int, depth: int, entry) -> bool:
+        ws = self._win.get(gidx)
+        if ws is None:
+            if depth != 0:
+                return False
+            self._win[gidx] = [entry]
+        elif len(ws) == depth:
+            ws.append(entry)
+        else:
+            return False
+        return True
+
+    def offer(self, gidx: int, depth: int, window) -> None:
+        """Warm the cache with an externally fetched raw (K,) window (no
+        store round; packed on the way in, an owned copy).  Depths must
+        arrive consecutively per suffix; an offer that would leave a gap,
+        or repeat a depth, is ignored."""
+        w = np.asarray(window).astype(np.int32).tolist()
+        if self._offer(int(gidx), int(depth), (self.store.pack_host(w), 0 in w)):
+            self._account(1)
+
+    def offer_windows(self, gidx: torch.Tensor, depth, windows: torch.Tensor) -> None:
+        """:meth:`offer` of a batch of distinct suffixes whose (m, K)
+        windows lie on the store's device: packed there and copied to the
+        host once.  ``depth`` is an int or an (m,) tensor."""
+        m = int(gidx.shape[0])
+        if m == 0:
+            return
+        depth = torch.as_tensor(depth, dtype=torch.int64, device=gidx.device).expand(m)
+        rows = torch.cat([gidx[:, None], depth[:, None],
+                          pack_keys(windows, self.store.cfg).to(torch.int64),
+                          (windows == 0).any(dim=1)[:, None].to(torch.int64)],
+                         dim=1).cpu().tolist()
+        taken = sum(self._offer(r[0], r[1], (tuple(r[2:-1]), bool(r[-1])))
+                    for r in rows)
+        if taken:
+            self._account(taken)
+
+    def release(self, gidx: int) -> None:
+        """Drop a suffix's cached keys (call when the merge emits it)."""
+        ws = self._win.pop(gidx, None)
+        if ws is not None:
+            self._account(-len(ws))
+
+    def release_all(self) -> None:
+        """Drop every cached entry (the streaming merge's reset between
+        phases: residency is reclaimed at the price of re-fetching)."""
+        total = self.cached_windows
+        self._win.clear()
+        if total:
+            self._account(-total)
+
+    def less(self, a: int, b: int) -> bool:
+        """Exact ``suffix(a) < suffix(b)``; equal contents tie by index.
+
+        Progressive packed-key comparison (word order is token-window
+        order), ``a``'s window fetched before ``b``'s at each depth as the
+        JAX cursor fetches them; equal windows in which ``a`` ends mean
+        equal suffixes, and the global index breaks the tie.
+        """
+        if a == b:
+            return False
+        win = self._win
+        for d in range(self._max_depth):
+            ws = win.get(a)
+            wa, ended = ws[d] if ws is not None and len(ws) > d else self._entry(a, d)
+            ws = win.get(b)
+            wb, _ = ws[d] if ws is not None and len(ws) > d else self._entry(b, d)
+            if wa != wb:
+                return wa < wb
+            if ended:
+                return a < b
+        raise RuntimeError("suffix comparison overran the window bound")
 
 
 # ---------------------------------------------------------------------------

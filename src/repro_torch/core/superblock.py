@@ -10,9 +10,9 @@ holds every record, and otherwise the paper's scale path in three phases.
    1`` the next block is staged on a background worker meanwhile.  Reads
    mode: block SAs are exact.  Text mode: they are exact away from the
    block tail.
-3. **Merge via the store** (``merge_algorithm="merge_path"``): text-mode
-   block tails (the risk set) are re-ranked exactly against the store and
-   join the merge as runs of their own; then every run's next ``tile``
+3. **Merge via the store**.  Text-mode block tails (the risk set) are
+   re-ranked exactly against the store and join the merge as runs of their
+   own.  ``merge_algorithm="merge_path"`` (the default): every run's next ``tile``
    heads are fetched in one batched store call and packed to key words,
    tie groups deeper than the fetched window are escalated together (one
    batched fetch per depth, or one :class:`DeviceRefiner` call under
@@ -22,26 +22,34 @@ holds every record, and otherwise the paper's scale path in three phases.
    ranked below the merge-path safety horizon is emitted, with its LCP
    under ``emit_lcp``.  The tile state lives on the store's device; a round
    reads one scalar per escalation level and one for the horizon.
+   ``"kway"``: splitter ranks located in every run by binary search, and
+   buckets merged through a heap of run heads on the host, every compare
+   served by a :class:`WindowCursor` (host keys, a singleton store fetch
+   a miss).  ``"rerank"``: every suffix re-ranked from scratch in pieces
+   of the record bound (``_sorted_runs``); under ``merge_backend="device"``
+   the :class:`DeviceRefiner` ranks them.
 
 Streaming (``store_backend="chunked"``, a corpus file path, or any backend
 but the in-memory one): the corpus stays on disk behind the chunked
 backend's LRU cache (half of ``cache_budget_bytes``), each block stages
 only its own items, block SAs spill to disk and the merge reads its tiles
 from those spills, with the tile width sized by the read-ahead share of
-the budget, so ``peak_resident_bytes`` (cache plus frontier) stays under
-the budget.  ``spill_dir`` receives ``suffix_array.npy``/``lcp.npy`` as
+the budget (the k-way merge's read-ahead and splitter pool by
+:class:`_MergeFrontier`), so ``peak_resident_bytes`` (cache plus frontier)
+stays under the budget.  ``spill_dir`` receives ``suffix_array.npy``/``lcp.npy`` as
 memmaps, and ``write_manifest`` finalizes it as an index directory
 (``repro_torch.core.index_io``).
 
 The output equals the JAX package's: the suffix array, the LCP array, every
 ``Footprint`` field and every ``stats`` key but the wall times ``t_*_s``,
-and the files of a ``spill_dir`` byte for byte.  The k-way and re-rank
-merges, resume, the sanitizer and store retries raise
-``NotImplementedError`` naming ROADMAP.md item 9b.
+and the files of a ``spill_dir`` byte for byte.  ``store_retries > 0``
+wraps the backend in a :class:`RetryingBackend`.  Resume and the sanitizer
+raise ``NotImplementedError`` naming ROADMAP.md item 9b.
 """
 from __future__ import annotations
 
 import contextlib
+import heapq
 import math
 import os
 import shutil
@@ -61,12 +69,15 @@ from repro_torch.core.integrity import publish_file
 from repro_torch.core.lcp import lcp_from_sa, pairwise_lcp
 from repro_torch.core.pipeline import DeviceRefiner, _tied, build_suffix_array
 from repro_torch.core.pipeline_exec import PipelineExecutor, pipeline_point
+from repro_torch.core.sanitize import unwrap_backend
 from repro_torch.core.store import (
     DEFAULT_CACHE_BUDGET,
     ChunkedFileBackend,
     CorpusStore,
     InMemoryBackend,
+    RetryingBackend,
     StoreBackend,
+    WindowCursor,
     materialize_backend,
 )
 from repro_torch.device import resolve_device
@@ -160,10 +171,9 @@ def corpus_shape_of(corpus) -> Tuple[int, ...]:
 
 
 def _refuse_unported(sb: SuperblockConfig) -> None:
-    if (sb.resume or sb.sanitize or sb.store_retries > 0
+    if (sb.resume or sb.sanitize
             or os.environ.get("REPRO_SANITIZE", "") not in ("", "0")):
-        raise NotImplementedError(
-            f"resume, the sanitizer and store retries {_ITEM_9B}")
+        raise NotImplementedError(f"resume and the sanitizer {_ITEM_9B}")
 
 
 def _to_device(run, device) -> torch.Tensor:
@@ -174,6 +184,14 @@ def _to_device(run, device) -> torch.Tensor:
     if type(run) is np.ndarray:  # not a memmap: no private copy needed
         return torch.from_numpy(np.ascontiguousarray(run, np.int64)).to(device)
     return torch.from_numpy(np.array(run, dtype=np.int64)).to(device)
+
+
+def _to_host(run) -> np.ndarray:
+    """A run as a host int64 array, where the k-way merge's heap walks it
+    (a spilled run's memmap as it is: its pages load as the heap reads)."""
+    if isinstance(run, torch.Tensor):
+        return run.cpu().numpy()
+    return run
 
 
 class _Scratch:
@@ -286,13 +304,26 @@ def _resolve_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
 
 @dataclass
 class _MergeFrontier:
-    """Streaming merge policy (``repro.core.superblock._MergeFrontier``,
-    its merge-path use): ``readahead_bytes`` is split across the merged
-    runs' tile buffers.  The k-way merge's cursor policy is ROADMAP.md
-    item 9b."""
+    """Streaming merge policy (``repro.core.superblock._MergeFrontier``):
+    bound the merge's resident frontier.
+
+    ``readahead_bytes`` is split across the live runs of a merge: a k-way
+    bucket merge keeps at most :meth:`per_run` depth-0 windows prefetched
+    ahead of each run head, the merge-path tiles :meth:`per_run_keys` rows.
+    ``drop_after_partition`` releases every cached cursor window once a
+    bucket partition is located (probe windows are fetched again by the
+    bucket merges that need them), and ``max_pool_windows`` bounds the
+    splitter pool, whose windows stay cached through the partition (a
+    smaller pool only coarsens the splitters).
+    """
 
     readahead_bytes: int
     window_bytes: int
+    drop_after_partition: bool = True
+    max_pool_windows: int = 64
+
+    def per_run(self, num_runs: int) -> int:
+        return max(2, self.readahead_bytes // (max(1, num_runs) * self.window_bytes))
 
     def per_run_keys(self, num_runs: int, key_words: int,
                      buffers: int = 2) -> int:
@@ -316,14 +347,17 @@ def _rows_equal_prev(rows: torch.Tensor) -> torch.Tensor:
     return eq
 
 
-def _refine_sort(store: CorpusStore, gidx: torch.Tensor) -> torch.Tensor:
+def _refine_sort(store: CorpusStore, gidx: torch.Tensor,
+                 cursor: Optional[WindowCursor] = None) -> torch.Tensor:
     """Rank ``gidx`` by exact suffix order with batched store fetches
-    (``repro.core.superblock._refine_sort`` without the cursor).
+    (``repro.core.superblock._refine_sort``).
 
     Sort by the first K-token window, then refine still-tied groups one
     window at a time; zero-padding orders shorter suffixes first and the
     global index is the last key.  A tie group advances a window only when
     every active member was served (``mget_window_host``'s capacity rule).
+    ``cursor``: a :class:`WindowCursor` offered every fetched window, so
+    the k-way merge that follows serves them from its cache.
     """
     m = gidx.shape[0]
     if m <= 1:
@@ -331,6 +365,8 @@ def _refine_sort(store: CorpusStore, gidx: torch.Tensor) -> torch.Tensor:
     k = store.k
     dev = gidx.device
     win = store.fetch_windows(gidx, 0)
+    if cursor is not None:
+        cursor.offer_windows(gidx, 0, win)
     order = lex_order([win[:, j] for j in range(k)] + [gidx])
     gidx, win = gidx[order], win[order]
     g = run_starts(_rows_equal_prev(win))
@@ -343,6 +379,9 @@ def _refine_sort(store: CorpusStore, gidx: torch.Tensor) -> torch.Tensor:
         if not bool(active.any()):
             break
         win, ok = store.mget_window_host(gidx, depth, active, g)
+        if cursor is not None:
+            got = active & ok
+            cursor.offer_windows(gidx[got], depth[got], win[got])
         # group-synchronous advance (mirrors the device while-loop body)
         member_ok = torch.where(active, ok, True).to(torch.int32)
         starts = torch.ones(m, dtype=torch.bool, device=dev)
@@ -370,36 +409,35 @@ def _less_than(store: CorpusStore, gidx: torch.Tensor, pivot: int) -> torch.Tens
 
     Progressive window comparison over capacity chunks; the pivot's window
     at each depth is fetched once and cached across chunks, as the JAX
-    package does, so the request counts do not depend on the chunking.
+    package does, so the request counts do not depend on the chunking; so
+    is whether the pivot ends in it, read from the device once.
     """
     dev = gidx.device
     out = torch.zeros(gidx.shape[0], dtype=torch.bool, device=dev)
     cap = store.request_capacity
-    cache = {}  # depth -> pivot window, shared by every chunk
+    cache = {}  # depth -> (pivot window, pivot ends in it), shared by every chunk
     for clo in range(0, gidx.shape[0], cap):
         chunk = gidx[clo : clo + cap]
         res = torch.zeros(chunk.shape[0], dtype=torch.bool, device=dev)
-        undecided = torch.ones(chunk.shape[0], dtype=torch.bool, device=dev)
+        sel = torch.arange(chunk.shape[0], device=dev)  # the undecided members
         depth = 0
-        while bool(undecided.any()):
-            wp = cache.get(depth)
-            if wp is None:
+        while sel.shape[0]:
+            hit = cache.get(depth)
+            if hit is None:
                 wp = store.fetch_windows([pivot], depth)[0]
-                cache[depth] = wp
-            sel = torch.nonzero(undecided).squeeze(1)
-            ws = store.fetch_windows(chunk[sel], depth)
+                hit = cache[depth] = (wp, bool((wp == 0).any()))
+            wp, pivot_ended = hit
+            cand = chunk[sel]
+            ws = store.fetch_windows(cand, depth)
             neq = ws != wp[None, :]
             anyneq = neq.any(dim=1)
             first = neq.to(torch.uint8).argmax(dim=1)
             less = ws[torch.arange(sel.shape[0], device=dev), first] < wp[first]
-            res[sel[anyneq]] = less[anyneq]
-            undecided[sel[anyneq]] = False
-            if bool((wp == 0).any()):
-                # equal windows incl. padding: both suffixes ended, the
-                # contents are equal and the index breaks the tie
-                eq_sel = sel[~anyneq]
-                res[eq_sel] = chunk[eq_sel] < pivot
-                undecided[eq_sel] = False
+            # equal windows in which the pivot ends: both suffixes ended, the
+            # contents are equal and the index breaks the tie; a member still
+            # undecided is written again at a deeper window
+            res[sel] = torch.where(anyneq, less, cand < pivot)
+            sel = sel[:0] if pivot_ended else sel[~anyneq]
             depth += 1
             assert depth <= store.max_len // store.k + 2, "comparison overran"
         out[clo : clo + cap] = res
@@ -437,6 +475,171 @@ def _sorted_runs(
     out: List[torch.Tensor] = []
     for part in _partition(store, gidx, torch.unique(splitters)):
         out.extend(_sorted_runs(store, part, cap, samples_per_split, refine))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# k-way merge of sorted block runs, on the host
+# ---------------------------------------------------------------------------
+
+
+def _rank_in_run(cur: WindowCursor, run: np.ndarray, splitter: int,
+                 drop_probes: bool = False) -> int:
+    """Number of ``run`` members with suffix < splitter, by binary search:
+    O(log n) exact comparisons through the cursor.  ``drop_probes``
+    (streaming) releases each probed member's windows as the search leaves
+    it, so only the splitter's stay cached across runs."""
+    lo, hi = 0, run.size
+    while lo < hi:
+        mid = (lo + hi) // 2
+        g = int(run[mid])
+        if cur.less(g, splitter):
+            lo = mid + 1
+        else:
+            hi = mid
+        if drop_probes and g != splitter:
+            cur.release(g)
+    return lo
+
+
+def _partition_runs(cur: WindowCursor, runs: List[np.ndarray], splitters: np.ndarray,
+                    drop_probes: bool = False) -> List[List[np.ndarray]]:
+    """Cut every sorted run at the splitter ranks: ``buckets[b]`` holds the
+    per-run segments of merge bucket ``b``, and every member of bucket
+    ``b`` precedes every member of bucket ``b + 1`` (splitters ascend)."""
+    nb = splitters.size + 1
+    buckets: List[List[np.ndarray]] = [[] for _ in range(nb)]
+    for run in runs:
+        cuts = [0]
+        for s in splitters:
+            cuts.append(max(_rank_in_run(cur, run, int(s), drop_probes), cuts[-1]))
+        cuts.append(run.size)
+        for b in range(nb):
+            seg = run[cuts[b] : cuts[b + 1]]
+            if seg.size:
+                buckets[b].append(seg)
+    return buckets
+
+
+class _Head:
+    """Heap entry of the k-way merge: one run and its position, ordered by
+    the exact suffix order of the head member.  ``readahead`` > 0 keeps only
+    the next ``readahead`` members' depth-0 windows prefetched (refilled as
+    the head advances); 0 means the caller prefetched the whole run."""
+
+    __slots__ = ("cur", "run", "pos", "readahead", "pref_end")
+
+    def __init__(self, cur: WindowCursor, run: np.ndarray, readahead: int = 0):
+        self.cur = cur
+        self.run = run
+        self.pos = 0
+        self.readahead = readahead
+        self.pref_end = 0
+        self.ensure_prefetch()
+
+    def ensure_prefetch(self) -> None:
+        if self.readahead and self.pos >= self.pref_end:
+            self.pref_end = min(self.pos + self.readahead, self.run.size)
+            self.cur.prefetch(np.asarray(self.run[self.pos : self.pref_end], np.int64))
+
+    @property
+    def gidx(self) -> int:
+        return int(self.run[self.pos])
+
+    def __lt__(self, other: "_Head") -> bool:
+        return self.cur.less(self.gidx, other.gidx)
+
+
+def _kway_merge(cur: WindowCursor, runs: List[np.ndarray], release: bool = True,
+                frontier: Optional[_MergeFrontier] = None) -> np.ndarray:
+    """Merge exactly-sorted host runs with a heap of run heads
+    (``repro.core.superblock._kway_merge``).
+
+    Without a ``frontier`` every member's depth-0 window is prefetched in
+    one batched fetch; with one, each run keeps a bounded read-ahead.
+    Emitted suffixes release their windows unless ``release`` is off (a
+    splitter pool, probed again by the partition right after).
+    """
+    runs = [r for r in runs if r.size]
+    if not runs:
+        return np.zeros((0,), np.int64)
+    if len(runs) == 1:
+        return runs[0]
+    total = sum(r.size for r in runs)
+    if frontier is None:
+        cur.prefetch(np.concatenate(runs))
+        heap = [_Head(cur, r) for r in runs]
+    else:
+        per_run = frontier.per_run(len(runs))
+        heap = [_Head(cur, r, readahead=per_run) for r in runs]
+    heapq.heapify(heap)
+    out = np.empty(total, np.int64)
+    i = 0
+    while heap:
+        h = heapq.heappop(heap)
+        g = h.gidx
+        out[i] = g
+        i += 1
+        if release:
+            cur.release(g)
+        h.pos += 1
+        if h.pos < h.run.size:
+            h.ensure_prefetch()
+            heapq.heappush(heap, h)
+    return out
+
+
+def _merge_runs(
+    cur: WindowCursor,
+    runs: List[np.ndarray],
+    cap: int,
+    samples_per_split: int,
+    rank_pool: Callable[[List[np.ndarray]], np.ndarray],
+    frontier: Optional[_MergeFrontier] = None,
+) -> List[np.ndarray]:
+    """Merge exactly-sorted host runs into <= cap pieces of the true order
+    (``repro.core.superblock._merge_runs``).
+
+    A bucket that fits the record bound is k-way merged; a larger one
+    recurses: splitters are members at per-run quantiles, ranked by
+    ``rank_pool`` (the pick subsequences, each sorted as its run is) and
+    located in every run by binary search.  The index tiebreak makes the
+    order strict, so every split sheds a member on each side.  A
+    ``frontier`` (streaming) bounds what stays cached: read-ahead bucket
+    merges, a bounded pool, and the cursor dropped once a partition is
+    located.
+    """
+    runs = [r for r in runs if r.size]
+    total = sum(r.size for r in runs)
+    if total == 0:
+        return []
+    if total <= cap:
+        return [_kway_merge(cur, runs, frontier=frontier)]
+    nb = -(-total // cap) + 1
+    take = min(total, cap, max(nb * samples_per_split, nb))
+    if frontier is not None:
+        # pool windows stay cached through the partition: bound them
+        take = min(take, max(nb, frontier.max_pool_windows))
+    pos = (np.arange(take, dtype=np.int64) * total) // take
+    # evenly spaced picks over the concatenated runs are per-run quantiles;
+    # regrouped per run, each pick subsequence is itself a sorted run
+    bounds = np.cumsum([0, *(r.size for r in runs)])
+    pool_runs = []
+    for ri, run in enumerate(runs):
+        sel = pos[(pos >= bounds[ri]) & (pos < bounds[ri + 1])] - bounds[ri]
+        if sel.size:
+            pool_runs.append(run[sel])
+    pool = rank_pool(pool_runs)
+    picks = pool[[(i * pool.size) // nb for i in range(1, nb)]]
+    buckets = _partition_runs(cur, runs, picks, drop_probes=frontier is not None)
+    if frontier is not None and frontier.drop_after_partition:
+        cur.release_all()  # probe and pool windows are fetched again on demand
+    out: List[np.ndarray] = []
+    for segs in buckets:
+        if sum(s.size for s in segs) >= total:
+            raise RuntimeError("superblock k-way partition made no progress")
+        out.extend(_merge_runs(cur, segs, cap, samples_per_split, rank_pool,
+                               frontier=frontier))
     return out
 
 
@@ -955,7 +1158,9 @@ def build_suffix_array_superblock(
     ``corpus`` is an array, a chunked corpus file path or a
     :class:`StoreBackend`; ``device`` places the backend of an array or a
     path (the card by default) and the build runs there.  With the chunked
-    backend the build is out of host RAM: see the module docstring.
+    backend the build is out of host RAM: see the module docstring.  The
+    build closes a backend it made, never one the caller passed in, with
+    or without the retry layer of ``store_retries``.
     """
     _refuse_unported(sb)
     needs_scratch = (
@@ -968,14 +1173,19 @@ def build_suffix_array_superblock(
         os.makedirs(sb.spill_dir, exist_ok=True)
     scratch = _Scratch(sb.spill_dir) if needs_scratch else None
     backend: Optional[StoreBackend] = None
+    owns_backend = True
     try:
         if isinstance(corpus, StoreBackend):
             device = corpus.device
         backend = _resolve_backend(corpus, cfg, sb, scratch, resolve_device(device))
+        owns_backend = backend is not corpus  # decided before any wrapping
+        if sb.store_retries > 0:
+            backend = RetryingBackend(backend, retries=sb.store_retries,
+                                      backoff_s=sb.store_backoff_s)
         return _build_superblock(backend, lengths, cfg, sb, scratch,
                                  original_corpus=corpus)
     finally:
-        if backend is not None and backend is not corpus:
+        if backend is not None and owns_backend:
             backend.close()
         if scratch is not None:
             scratch.cleanup()
@@ -1050,10 +1260,7 @@ def _build_superblock_phases(
         raise ValueError(f"unknown merge_backend: {sb.merge_backend!r}")
     if sb.merge_algorithm not in ("merge_path", "kway", "rerank"):
         raise ValueError(f"unknown merge_algorithm: {sb.merge_algorithm!r}")
-    if sb.merge_algorithm != "merge_path":
-        raise NotImplementedError(
-            f"the {sb.merge_algorithm} merge {_ITEM_9B}")
-    streaming = not isinstance(backend, InMemoryBackend)
+    streaming = not isinstance(unwrap_backend(backend), InMemoryBackend)
     if streaming and sb.merge_backend == "device":
         raise ValueError(
             "merge_backend='device' needs the corpus HBM-resident; "
@@ -1068,12 +1275,14 @@ def _build_superblock_phases(
     )
     frontier = None
     if streaming:
-        # LRU half + read-ahead eighth; the rest is slack for tie-depth
-        # escalation (the tile's rows widen as groups escalate)
+        # LRU half + read-ahead eighth + splitter-pool eighth; the rest is
+        # slack for tie depth (merge-path rows widen as groups escalate,
+        # k-way partition probes release after each search)
         wb = store.k * 4
         frontier = _MergeFrontier(
             readahead_bytes=max(_budget(sb) // 8, 2 * plan.num_superblocks * wb),
-            window_bytes=wb)
+            window_bytes=wb,
+            max_pool_windows=max(4, min(64, (_budget(sb) // 8) // wb)))
 
     def keep_run(run):
         """A sorted run as the merge takes it: streaming, spilled to disk
@@ -1181,6 +1390,7 @@ def _build_superblock_phases(
     sinks.append(sink)
     peak_candidates = 0
 
+    cur = WindowCursor(store)
     refiner: Optional[DeviceRefiner] = None
     if sb.merge_backend == "device":
         refiner = DeviceRefiner(
@@ -1190,38 +1400,69 @@ def _build_superblock_phases(
         )
         refine = refiner.refine
     else:
-        def refine(g: torch.Tensor) -> torch.Tensor:
-            return _refine_sort(store, g)
+        # kway: the merge cursor is offered every re-rank fetch, so the
+        # k-way phase serves those windows from its cache.  Not streaming:
+        # the offers would keep a window a re-ranked suffix cached, beyond
+        # the frontier's bound
+        warm = cur if (sb.merge_algorithm == "kway" and not streaming) else None
 
-    if plan.text_mode:
-        runs, risk = _split_boundary_risk(plan, local_sas, block_stats, store.k,
-                                          device=dev)
-        runs = [keep_run(r) for r in runs]  # re-spill the filtered runs
-        bad = [risk] if risk.shape[0] else []
-    else:
-        # reads mode: block runs are exact, unless a block hit the
-        # refinement hard cap; such blocks are re-ranked like a risk set
-        runs = [r for r, st in zip(local_sas, block_stats, strict=True)
-                if st.get("unresolved", 0) == 0]
-        bad = [_to_device(r, dev) for r, st in zip(local_sas, block_stats, strict=True)
-               if st.get("unresolved", 0) != 0]
-    pieces = []
-    if bad:
-        pieces = [keep_run(p) for p in
-                  _sorted_runs(store, torch.cat(bad), cap, samples, refine)
-                  if p.shape[0]]
-    if scratch is not None:
-        scratch.drain_spills()  # the merge reads these runs next
-    if runs:
-        peak_candidates = _merge_path_runs(
-            store, runs + pieces, sink, cap, sb.merge_tile, cfg.use_pallas,
-            refiner=refiner, frontier=frontier, executor=pipe,
-        )
-    else:
-        # every suffix was at risk: the re-ranked pieces already are
-        # consecutive intervals of the true order
-        for p in pieces:
+        def refine(g: torch.Tensor) -> torch.Tensor:
+            return _refine_sort(store, g, cursor=warm)
+
+    def risk_free_runs() -> Tuple[List, List]:
+        """The exactly-sorted runs of the merge, as ``(runs, pieces)``:
+        block SAs with the text-mode risk set (and blocks of unresolved
+        ties) re-ranked into sorted pieces that join the merge as runs of
+        their own.  No runs: every suffix was at risk, and the pieces
+        already are consecutive intervals of the true order."""
+        if plan.text_mode:
+            runs, risk = _split_boundary_risk(plan, local_sas, block_stats, store.k,
+                                              device=dev)
+            runs = [keep_run(r) for r in runs]  # re-spill the filtered runs
+            bad = [risk] if risk.shape[0] else []
+        else:
+            # reads mode: block runs are exact, unless a block hit the
+            # refinement hard cap; such blocks are re-ranked like a risk set
+            runs = [r for r, st in zip(local_sas, block_stats, strict=True)
+                    if st.get("unresolved", 0) == 0]
+            bad = [_to_device(r, dev) for r, st in zip(local_sas, block_stats, strict=True)
+                   if st.get("unresolved", 0) != 0]
+        pieces = []
+        if bad:
+            pieces = [keep_run(p) for p in
+                      _sorted_runs(store, torch.cat(bad), cap, samples, refine)
+                      if p.shape[0]]
+        if scratch is not None:
+            scratch.drain_spills()  # the merge reads these runs next
+        return runs, pieces
+
+    if sb.merge_algorithm == "rerank":
+        # every suffix re-ranked from scratch (block order only samples the
+        # splitters): the traffic baseline
+        every = torch.cat([_to_device(r, dev) for r in local_sas])
+        for p in _sorted_runs(store, every, cap, samples, refine):
             sink.append(p)
+    else:
+        runs, pieces = risk_free_runs()
+        if not runs:
+            for p in pieces:
+                sink.append(p)
+        elif sb.merge_algorithm == "merge_path":
+            peak_candidates = _merge_path_runs(
+                store, runs + pieces, sink, cap, sb.merge_tile, cfg.use_pallas,
+                refiner=refiner, frontier=frontier, executor=pipe,
+            )
+        else:
+            # the splitter pools are lists of sorted pick runs: merged through
+            # the cursor, their windows are fetched once and stay cached for
+            # the partition probes and the bucket merges
+            def rank_pool(pool_runs: List[np.ndarray]) -> np.ndarray:
+                return _kway_merge(cur, pool_runs, release=False)
+
+            # the heap walks host arrays: the runs come there here
+            for p in _merge_runs(cur, [_to_host(r) for r in runs + pieces], cap,
+                                 samples, rank_pool, frontier=frontier):
+                sink.append(p)
     sa = sink.result()
     t_merge = time.perf_counter() - t_merge0
 
@@ -1252,8 +1493,7 @@ def _build_superblock_phases(
                                  + dev_req_bytes + dev_resp_bytes),
         "merge_fetch_rounds": int(store.rounds) + (refiner.rounds if refiner else 0),
         "merge_retries": int(store.retries),
-        # the k-way merge's cursor (item 9b) is not on this path
-        "merge_cursor_peak_windows": 0,
+        "merge_cursor_peak_windows": cur.peak_cached_windows,
         "block_rounds": [s["rounds"] for s in block_stats],
         "dropped": fp.dropped,
         "unresolved": sum(s["unresolved"] for s in block_stats),
@@ -1266,12 +1506,12 @@ def _build_superblock_phases(
         "spilled_runs": scratch.spilled_runs if scratch else 0,
         "spilled_bytes": scratch.spilled_bytes if scratch else 0,
         "emit_lcp": bool(sb.emit_lcp),
-        # the sanitizer, the journal and store retries are item 9b
+        # the sanitizer and the journal are item 9b
         "sanitized": False,
         "journaled": False,
         "journal_hits": 0,
-        "store_retry_attempts": 0,
-        "store_retried_calls": 0,
+        "store_retry_attempts": int(getattr(backend, "retry_attempts", 0)),
+        "store_retried_calls": int(getattr(backend, "retried_calls", 0)),
         "pipeline_depth": int(sb.pipeline_depth),
         "t_stage_s": round(t_stage, 6),
         "t_build_s": round(t_build, 6),

@@ -13,16 +13,17 @@
 
 The ``--mode scheme`` path of ``repro.launch.sa_build``, single-pass or
 out-of-core (``--superblocks``, ``--max-records-per-run``, with
-``--merge-backend``, ``--merge-tile`` and ``--pipeline-depth``), streaming
-(``--store-backend chunked``, ``--cache-budget``, ``--chunk-records``,
-``--corpus-file``) and persisted (``--index-dir``), with the same flags,
-corpus synthesis and printout.  ``--corpus-file`` names a chunked corpus
+``--merge-algorithm``, ``--merge-backend``, ``--merge-tile``,
+``--pipeline-depth`` and ``--store-retries``), streaming (``--store-backend
+chunked``, ``--cache-budget``, ``--chunk-records``, ``--corpus-file``) and
+persisted (``--index-dir``), with the same flags, corpus synthesis and
+printout.  ``--corpus-file`` names a chunked corpus
 file: an existing one is built as it is, a fresh path gets the synthesized
 corpus written there first and kept.  ``--device cuda`` (the default) runs
 on ``cuda:0`` with the hand-written kernels (``use_pallas=True``);
 ``--device cpu`` runs the plain PyTorch path.  Flags of paths not yet ported
-exit with an error naming the ROADMAP.md item that ports them: the k-way and
-re-rank merges, resume and store retries are item 9b.
+exit with an error naming the ROADMAP.md item that ports them: ``--resume``
+is item 9b, ``--mode terasort|doubling`` item 11.
 """
 from __future__ import annotations
 
@@ -32,9 +33,7 @@ import time
 
 # flag -> (value that means "not used", ROADMAP.md item that ports its path)
 UNPORTED = {
-    "merge_algorithm": ("merge_path", "9b"),
     "resume": (False, "9b"),
-    "store_retries": (0, "9b"),
 }
 
 
@@ -61,6 +60,12 @@ def parse_args(argv=None):
     ap.add_argument("--merge-backend", choices=["host", "device"],
                     default="host",
                     help="where out-of-core merge tie groups are refined")
+    ap.add_argument("--merge-algorithm",
+                    choices=["merge_path", "kway", "rerank"],
+                    default="merge_path",
+                    help="out-of-core merge: batched merge-path tiles "
+                         "(default), the heap-walk k-way baseline, or the "
+                         "wholesale re-rank baseline")
     ap.add_argument("--merge-tile", type=int, default=0,
                     help="merge-path tile width (buffered heads per run; "
                          "0 = derive from the per-run record capacity)")
@@ -86,13 +91,13 @@ def parse_args(argv=None):
                     help="finalize the build as a reopenable index directory "
                          "(SA + LCP + corpus + manifest); serve it with "
                          "repro_torch.launch.serve --index-dir")
-    # merge and crash-safety flags of repro.launch.sa_build not ported yet:
-    # accepted so scripts keep working, refused unless left at their default
-    ap.add_argument("--merge-algorithm",
-                    choices=["merge_path", "kway", "rerank"],
-                    default="merge_path")
+    ap.add_argument("--store-retries", type=int, default=0,
+                    help="retry transient store-fetch faults this many times "
+                         "(capped exponential backoff) before failing the "
+                         "build; 0 = fail fast")
+    # the crash-safety flag of repro.launch.sa_build not ported yet:
+    # accepted so scripts keep working, refused unless left at its default
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--store-retries", type=int, default=0)
     args = ap.parse_args(argv)
     if args.mode != "scheme":
         ap.error(f"--mode {args.mode} is not ported yet (ROADMAP.md item 11)")
@@ -133,6 +138,7 @@ def make_superblock_config(args):
         num_superblocks=args.superblocks,
         max_records_per_run=args.max_records_per_run,
         merge_backend=args.merge_backend,
+        merge_algorithm=args.merge_algorithm,
         merge_tile=args.merge_tile,
         store_backend="chunked" if args.corpus_file else args.store_backend,
         chunk_records=args.chunk_records,
@@ -141,6 +147,7 @@ def make_superblock_config(args):
         emit_lcp=bool(args.index_dir),
         write_manifest=bool(args.index_dir),
         pipeline_depth=args.pipeline_depth,
+        store_retries=args.store_retries,
     )
 
 

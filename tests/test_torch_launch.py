@@ -13,17 +13,17 @@ from repro_torch.launch import sa_build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _stdout(module, *args):
+def _stdout(module, *args, cwd=None):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-m", module, *args],
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
                           capture_output=True, text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr
     return proc.stdout.splitlines()
 
 
-def _run(module, *args):
-    lines = _stdout(module, *args)
+def _run(module, *args, cwd=None):
+    lines = _stdout(module, *args, cwd=cwd)
     count = next(ln.split("suffixes=")[1].split()[0] for ln in lines
                  if "suffixes=" in ln)
     units = [ln for ln in lines if ln.startswith("  ")]
@@ -41,12 +41,21 @@ def _run(module, *args):
     ["--text", "500", "--seed", "3", "--max-records-per-run", "150"],
     ["--reads", "40", "--read-len", "16", "--max-records-per-run", "300",
      "--merge-backend", "device", "--merge-tile", "8", "--pipeline-depth", "0"],
-], ids=["reads", "text", "reads-superblocks", "text-budget", "reads-device-merge"])
-def test_launcher_matches_repro(flags):
+    ["--superblocks", "2", "--merge-algorithm", "kway"],
+    ["--corpus-file", "corpus.sachunk", "--store-retries", "2"],
+    ["--store-backend", "chunked", "--merge-algorithm", "kway"],
+    ["--merge-algorithm", "rerank"],
+    ["--reads", "60", "--read-len", "20", "--superblocks", "3",
+     "--merge-algorithm", "rerank", "--store-retries", "2"],
+], ids=["reads", "text", "reads-superblocks", "text-budget", "reads-device-merge",
+        "--superblocks", "--corpus-file", "--store-backend", "--merge-algorithm",
+        "reads-rerank-retries"])
+def test_launcher_matches_repro(flags, tmp_path):
     """The same printout apart from the wall times, the ``out-of-core:``
-    plan line included."""
-    got = _run("repro_torch.launch.sa_build", "--device", "cpu", *flags)
-    want = _run("repro.launch.sa_build", *flags)
+    plan line included (run in a fresh directory: ``--corpus-file`` names a
+    file there, written by the first run and read by the second)."""
+    got = _run("repro_torch.launch.sa_build", "--device", "cpu", *flags, cwd=tmp_path)
+    want = _run("repro.launch.sa_build", *flags, cwd=tmp_path)
     assert got == want
     assert bool(got[2]) == any(f.startswith(("--superblocks", "--max-records"))
                                for f in flags)
@@ -55,21 +64,17 @@ def test_launcher_matches_repro(flags):
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "doubling"], "11"),
     (["--mode", "terasort"], "11"),
-    (["--superblocks", "2", "--merge-algorithm", "kway"], "9b"),
-    (["--max-records-per-run", "1000", "--store-retries", "2"], "9b"),
+    # ported, but 134 superblocks take repro about two minutes on a CPU
+    (["--max-records-per-run", "1000", "--store-retries", "2", "--resume"], "9b"),
     (["--index-dir", "ix", "--resume"], "9b"),
-    (["--corpus-file", "corpus.sachunk", "--store-retries", "2"], "9b"),
     (["--resume"], "9b"),
-    (["--store-backend", "chunked", "--merge-algorithm", "kway"], "9b"),
-    (["--merge-algorithm", "rerank"], "9b"),
     (["--cache-budget", "65536", "--mode", "doubling"], "11"),
-], ids=["--mode0", "--mode1", "--superblocks", "--max-records-per-run",
-        "--index-dir", "--corpus-file", "--resume", "--store-backend",
-        "--merge-algorithm", "--cache-budget"])
+], ids=["--mode0", "--mode1", "--max-records-per-run", "--index-dir", "--resume",
+        "--cache-budget"])
 def test_unported_flags_exit_nonzero(flags, item, capsys):
     """Flags of paths not ported yet exit naming their ROADMAP.md item; the
-    out-of-core, streaming and index flags are ported, so those cases pair
-    them with one that is not."""
+    out-of-core, merge, retry, streaming and index flags are ported, so those
+    cases pair them with one that is not."""
     with pytest.raises(SystemExit) as e:
         sa_build.parse_args(flags)
     assert e.value.code != 0
@@ -79,10 +84,12 @@ def test_unported_flags_exit_nonzero(flags, item, capsys):
 def test_out_of_core_flags_parse_into_the_superblock_config():
     args = sa_build.parse_args(["--superblocks", "3", "--max-records-per-run", "9",
                                 "--merge-backend", "device", "--merge-tile", "5",
-                                "--pipeline-depth", "0"])
+                                "--pipeline-depth", "0", "--merge-algorithm", "kway",
+                                "--store-retries", "4"])
     sb = sa_build.make_superblock_config(args)
     assert (sb.num_superblocks, sb.max_records_per_run, sb.merge_backend,
-            sb.merge_tile, sb.pipeline_depth) == (3, 9, "device", 5, 0)
+            sb.merge_tile, sb.pipeline_depth, sb.merge_algorithm,
+            sb.store_retries) == (3, 9, "device", 5, 0, "kway", 4)
     assert not sb.emit_lcp
 
 

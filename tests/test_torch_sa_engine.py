@@ -206,7 +206,9 @@ def test_unported_paths_raise(call, item, tmp_path, monkeypatch):
     ported: its calls now do what ``repro``'s do on the same input: opening
     a directory with no manifest and building from a missing corpus file
     raise ``FileNotFoundError``; ``save`` and ``build(index_dir=...)``
-    write a directory that reopens with the same answers."""
+    write a directory that reopens with the same answers.  So are the k-way
+    merge over several superblocks and store retries (item 9b, steps 1-2):
+    their indexes equal ``repro``'s."""
     reads = np.random.default_rng(0).integers(1, 5, size=(12, 6)).astype(np.int32)
     cfg = SAConfig(vocab_size=4)
     build = lambda corpus=reads, **kw: SuffixArrayIndex.build(  # noqa: E731
@@ -232,16 +234,26 @@ def test_unported_paths_raise(call, item, tmp_path, monkeypatch):
         with SuffixArrayIndex.open(ix, device="cpu") as idx:
             assert idx.align(pats) == want.align(pats)
         return
+    if call in ("superblocks", "store_retries"):
+        sb = (dict(num_superblocks=3, merge_algorithm="kway") if call == "superblocks"
+              else dict(store_retries=2))
+        want = ref_engine.SuffixArrayIndex.build(reads, cfg=RefConfig(vocab_size=4),
+                                                 sb=RefSB(**sb))
+        got = build(sb=SuperblockConfig(**sb))
+        np.testing.assert_array_equal(got.sa, np.asarray(want.sa))
+        np.testing.assert_array_equal(got.lcp, np.asarray(want.lcp))
+        walls = [k for k in want.build_stats if k.startswith("t_")]
+        assert ({k: v for k, v in got.build_stats.items() if k not in walls}
+                == {k: v for k, v in want.build_stats.items() if k not in walls})
+        pats = [reads[2, 1:4], reads[5, :3], np.array([4, 4], np.int64)]
+        assert got.align(pats) == want.align(pats)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         if call == "sanitize":
             monkeypatch.setenv("REPRO_SANITIZE", "1")
             build()
-        elif call == "superblocks":
-            # several superblocks build now (tests/test_torch_merge.py); the
-            # k-way merge over them is still item 9b
-            build(sb=SuperblockConfig(num_superblocks=3, merge_algorithm="kway"))
         else:
-            build(sb=SuperblockConfig(**{call: 2 if call == "store_retries" else True}))
+            build(sb=SuperblockConfig(resume=True))
 
 
 def test_superblock_config_carries_across():
