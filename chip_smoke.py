@@ -6,6 +6,7 @@
     python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
     python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
     python3 chip_smoke.py --merges 5000 20  # phase 10 only, at these sizes
+    python3 chip_smoke.py --resume 125000 26  # phase 11 only, at these sizes
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -101,12 +102,30 @@ each of which fails loudly:
    injected and retried.  Last, ``kway`` and ``rerank`` stream
    ``STREAM_MERGE_READS`` reads from the chunked store at a quarter of the
    corpus bytes: the in-memory build's SA, ``peak_resident_bytes`` within
-   the budget.
+   the budget;
+11. crash safety on the card: phase 8's reads cell (memory store) built
+   journaled (``resume=True`` with a ``spill_dir``), then journaled and
+   sanitized: the SA, LCP and Footprint of phase 8's kernel build, and its
+   stats but those the journal (its flags, the memory store's spilled runs)
+   and the sanitizer (its flag, the cache hits of its audit reads) move.
+   Then, journaled, killed at the last ``build:block`` (no worker) and
+   resumed: the journaled build, with 3 blocks from the journal; killed at
+   the merge's first ``merge:rank`` and resumed: 4 blocks from the
+   journal, no kernel launched in phase 2 and ``merge_path_ranks`` as
+   often as in the journaled build.  Phase 8's text cell, journaled,
+   killed at ``merge:rank`` and resumed: phase 8's build, ``prefix_pack``
+   launched 0 times.  ``STREAM_MERGE_READS`` reads streamed from the
+   chunked store at a quarter of the corpus bytes, journaled and
+   sanitized, killed a quarter of the way through the merge's refills and
+   resumed: the unjournaled streaming build, ``peak_resident_bytes``
+   within the budget.  Each wall is printed beside the unjournaled one.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
-phases 1-2 and then phase 10 alone at those sizes (no result line).  Without CUDA, or without the
-repository beside it, the script exits non-zero and prints no result.
+phases 1-2 and then phase 10 alone at those sizes, ``--resume READS LOG2``
+phase 11 alone (against unjournaled builds it makes itself; no result line).
+Without CUDA, or without the repository beside it, the script exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -1434,7 +1453,8 @@ def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
                 raise AssertionError(f"{name} [{label}]: plain path launched {launched}")
             kept[label] = (dataclasses.asdict(res.footprint), stats_without_walls(st))
             report[(name, label)] = dict(wall_s=dt, suffixes_per_s=n / dt,
-                                         peak_gib=peak / 2**30, stats=st)
+                                         peak_gib=peak / 2**30, stats=st,
+                                         footprint=kept[label][0])
             if label == "kernels":
                 counts[name] = launched
             del res
@@ -1757,6 +1777,278 @@ def phase_merges(dev, reads=MERGE_READS, text_log2=MERGE_TEXT_LOG2,
     return counts
 
 
+# phase 11: the stats a journaled build moves (its own flags and count, and the
+# spills of the memory store's runs), and those the sanitizer's audit reads move
+# through the build's backend (as in repro) beside its flag
+JOURNAL_MOVES = ("journaled", "journal_hits", "spilled_runs", "spilled_bytes")
+SANITIZER_MOVES = ("sanitized", "store_cache_hits", "store_cache_misses",
+                   "store_cache_hit_rate")
+
+
+class Killed(Exception):
+    """Raised at a pipeline point to kill a build (phase 11)."""
+
+
+def probed(fn, label=None, at=0):
+    """Run ``fn`` with the superblock module's ``pipeline_point`` (the build
+    calls it by that name) watched: ``Killed`` is raised at the ``at``-th
+    occurrence of ``label``, and the launch counts are read at the first
+    ``spill:drain``, the end of phase 2.  Returns (fn's result, or None when
+    killed; the occurrences of each label; the phase-2 launches)."""
+    from repro_torch.core import superblock
+    from repro_torch.kernels import launch_counts
+
+    real = superblock.pipeline_point
+    seen, phase2 = {}, {}
+
+    def probe(lbl):
+        real(lbl)
+        seen[lbl] = seen.get(lbl, 0) + 1
+        if lbl == "spill:drain" and not phase2:
+            phase2.update(launch_counts())
+        if lbl == label and seen[lbl] == at:
+            raise Killed(lbl)
+
+    superblock.pipeline_point = probe
+    try:
+        return fn(), seen, phase2
+    except Killed:
+        return None, seen, phase2
+    finally:
+        superblock.pipeline_point = real
+
+
+def resume_build(what, corpus, spill_dir, kill=(None, 0), sanitize=True, depth=1,
+                 **sb_kw):
+    """One phase-11 build of ``corpus`` (S = 4, LCP) through the launcher's
+    code path, journaled in ``spill_dir``, its launch counts set to 0 just
+    before and read just after; killed at ``kill`` = (label, occurrence).
+    Returns (result or None, wall, launches, phase-2 launches, labels seen)."""
+    import torch
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sa_build
+
+    sb = SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True,
+                          spill_dir=spill_dir, resume=True, sanitize=sanitize,
+                          pipeline_depth=depth, **sb_kw)
+    cfg = sa_build.make_config("base", "cuda")
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, seen, phase2 = probed(lambda: sa_build.run(corpus, cfg, "cuda", sb=sb), *kill)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = launch_counts()
+    if out is None:
+        log(f"phase 11: {what}: killed at {kill[0]} #{kill[1]} after {dt:.3f} s; "
+            f"launches {launched}")
+        if not os.path.exists(os.path.join(spill_dir, "build.journal")):
+            raise AssertionError(f"phase 11: {what}: no journal left to resume")
+        return None, dt, launched, phase2, seen
+    res = out[0]
+    st = res.stats
+    log(f"phase 11: {what}: {dt:.3f} s wall, t_stage_s {st['t_stage_s']}, t_build_s "
+        f"{st['t_build_s']}, t_merge_s {st['t_merge_s']}; journal_hits "
+        f"{st['journal_hits']}, spilled {st['spilled_runs']} runs "
+        f"({st['spilled_bytes']} B), store_cache_hits {st['store_cache_hits']}, "
+        f"peak_resident_bytes {st['peak_resident_bytes']}; launches {launched} "
+        f"(phase 2: {phase2})")
+    if not (st["journaled"] and st["sanitized"] == sanitize):
+        raise AssertionError(f"phase 11: {what}: {st}")
+    if st["dropped"] or st["unresolved"] or st["peak_records"] > st["capacity_records"]:
+        raise AssertionError(f"phase 11: {what}: {st}")
+    if os.path.exists(os.path.join(spill_dir, "build.journal")):
+        raise AssertionError(f"phase 11: {what}: the finished build kept its journal")
+    return res, dt, launched, phase2, seen
+
+
+def same_build(what, res, want, moved=()):
+    """``res`` against ``want`` = (SA, LCP, Footprint, stats): the SA and LCP
+    bit for bit, the Footprint, and every stat but the walls and ``moved``;
+    returns the stats that differ, for the log."""
+    import dataclasses
+
+    import numpy as np
+
+    sa, lcp, fp, stats = want
+    if not np.array_equal(res.suffix_array, sa):
+        raise AssertionError(f"phase 11: {what}: SA differs")
+    if not np.array_equal(res.lcp, lcp):
+        raise AssertionError(f"phase 11: {what}: LCP differs")
+    if dataclasses.asdict(res.footprint) != fp:
+        raise AssertionError(f"phase 11: {what}: Footprint {res.footprint} != {fp}")
+    got = stats_without_walls(res.stats)
+    want_st = stats_without_walls(stats)
+    diff = {k: (want_st.get(k), v) for k, v in got.items() if want_st.get(k) != v}
+    if set(diff) - set(moved):
+        raise AssertionError(f"phase 11: {what}: stats differ beyond {moved}: {diff}")
+    return diff
+
+
+def kept_build(res):
+    import dataclasses
+
+    import numpy as np
+
+    return (np.array(res.suffix_array), np.array(res.lcp),
+            dataclasses.asdict(res.footprint), dict(res.stats))
+
+
+def unjournaled_cell(name, corpus):
+    """A phase-8 kernel build of ``corpus`` (S = 4, LCP), as a phase-11 cell:
+    (name, corpus, (SA, LCP, Footprint, stats), wall)."""
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.launch import sa_build
+
+    res, dt = sa_build.run(corpus, sa_build.make_config("base", "cuda"), "cuda",
+                           sb=SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS,
+                                               emit_lcp=True))
+    log(f"phase 11: {name} unjournaled: {dt:.3f} s wall")
+    return name, corpus, kept_build(res), dt
+
+
+def phase_resume(reads_cell, text_cell, stream_reads=STREAM_MERGE_READS):
+    """Phase 11 (see the module docstring).  ``reads_cell`` and ``text_cell``
+    are (name, corpus, (SA, LCP, Footprint, stats), wall) of phase 8's
+    unjournaled kernel build.  Returns the launches of each build, by build."""
+    import shutil
+    import tempfile
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.launch import sa_build
+
+    counts = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    spill = lambda tag: os.path.join(tmp, tag)  # noqa: E731
+    try:
+        name, corpus, base, base_wall = reads_cell
+        # (i) uninterrupted: journaled, then journaled and sanitized
+        res, wall_j, launched, _, _ = resume_build(f"{name} journaled", corpus,
+                                                   spill("j"), sanitize=False)
+        diff = same_build(f"{name} journaled", res, base, JOURNAL_MOVES)
+        counts[f"{name} journaled"] = launched
+        journaled = kept_build(res)
+        del res
+        res, wall_i, launched, _, _ = resume_build(f"{name} journaled, sanitized",
+                                                   corpus, spill("i"))
+        diff_i = same_build(f"{name} journaled, sanitized", res, base,
+                            JOURNAL_MOVES + SANITIZER_MOVES)
+        if launched["window_gather"] <= 0 or launched["merge_path"] <= 0:
+            raise AssertionError(f"phase 11: {name}: a kernel not launched: {launched}")
+        counts[f"{name} journaled, sanitized"] = launched
+        del res
+        log(f"phase 11: {name}: unjournaled (phase 8) {base_wall:.3f} s, journaled "
+            f"{wall_j:.3f} s ({100 * (wall_j / base_wall - 1):+.1f} %), journaled and "
+            f"sanitized {wall_i:.3f} s ({100 * (wall_i / base_wall - 1):+.1f} %); SA, "
+            f"LCP and Footprint == phase 8's; stats that moved: journal {diff}, "
+            f"journal and sanitizer {diff_i}")
+
+        # (ii) killed at the last block's build and resumed, journaled as the
+        # first build of (i) (the sanitizer's cost is that build's).  The
+        # killed attempt runs with no worker, so each block's record is
+        # appended as its run is written (with one, the last record waits on
+        # its spill's write, and the kill would find it pending); the resumed
+        # one runs as (i)
+        d = spill("ii")
+        _, wall_k, launched, _, _ = resume_build(
+            f"{name} killed at the last build:block", corpus, d, depth=0,
+            kill=("build:block", OOC_SUPERBLOCKS), sanitize=False)
+        res, wall_r, launched, _, _ = resume_build(f"{name} resumed after it", corpus, d,
+                                                   sanitize=False)
+        same_build(f"{name} resumed (ii)", res, journaled,
+                   ("journal_hits", "spilled_runs", "spilled_bytes"))
+        if res.stats["journal_hits"] != OOC_SUPERBLOCKS - 1:
+            raise AssertionError(f"phase 11: (ii) journal_hits {res.stats['journal_hits']}")
+        counts[f"{name} resumed after the last build:block"] = launched
+        del res
+        log(f"phase 11: {name}: killed at the last build:block after {wall_k:.3f} s, "
+            f"resumed in {wall_r:.3f} s with journal_hits {OOC_SUPERBLOCKS - 1}: == (i)'s "
+            f"journaled build")
+
+        # (iii) killed at the merge's first rank, after every block is durable
+        d = spill("iii")
+        _, wall_k, _, _, _ = resume_build(f"{name} killed at merge:rank", corpus, d,
+                                          kill=("merge:rank", 1), sanitize=False)
+        res, wall_r, launched, phase2, _ = resume_build(f"{name} resumed after it",
+                                                        corpus, d, sanitize=False)
+        same_build(f"{name} resumed (iii)", res, journaled,
+                   ("journal_hits", "spilled_runs", "spilled_bytes"))
+        if res.stats["journal_hits"] != OOC_SUPERBLOCKS:
+            raise AssertionError(f"phase 11: (iii) journal_hits {res.stats['journal_hits']}")
+        if not phase2 or any(phase2.values()):
+            raise AssertionError(f"phase 11: (iii) phase 2 launched {phase2}")
+        want_mp = counts[f"{name} journaled"]["merge_path"]
+        if launched["merge_path"] != want_mp:
+            raise AssertionError(f"phase 11: (iii) merge_path {launched['merge_path']} "
+                                 f"launches, (i) {want_mp}")
+        counts[f"{name} resumed after merge:rank"] = launched
+        del res
+        log(f"phase 11: {name}: killed at merge:rank after {wall_k:.3f} s, resumed in "
+            f"{wall_r:.3f} s with journal_hits {OOC_SUPERBLOCKS}: == (i)'s journaled build; "
+            f"phase 2 "
+            f"launched nothing, merge_path {launched['merge_path']} times as in (i)")
+        del journaled
+
+        # the text cell, killed at the merge's first rank and resumed
+        name, corpus, base, base_wall = text_cell
+        d = spill("text")
+        _, wall_k, launched, _, _ = resume_build(f"{name} killed at merge:rank", corpus,
+                                                 d, kill=("merge:rank", 1),
+                                                 sanitize=False)
+        if launched["prefix_pack"] <= 0:
+            raise AssertionError(f"phase 11: {name}: prefix_pack not launched: {launched}")
+        counts[f"{name} journaled, killed at merge:rank"] = launched
+        res, wall_r, launched, _, _ = resume_build(f"{name} resumed after it", corpus, d,
+                                                   sanitize=False)
+        same_build(f"{name} resumed", res, base, JOURNAL_MOVES)
+        if res.stats["journal_hits"] != OOC_SUPERBLOCKS or launched["prefix_pack"]:
+            raise AssertionError(f"phase 11: {name}: journal_hits "
+                                 f"{res.stats['journal_hits']}, launches {launched}")
+        if launched["merge_path"] <= 0:
+            raise AssertionError(f"phase 11: {name}: merge_path not launched: {launched}")
+        counts[f"{name} resumed after merge:rank"] = launched
+        del res
+        log(f"phase 11: {name}: killed at merge:rank after {wall_k:.3f} s, resumed in "
+            f"{wall_r:.3f} s (unjournaled, phase 8: {base_wall:.3f} s) with journal_hits "
+            f"{OOC_SUPERBLOCKS}, prefix_pack launched 0 times: == phase 8's build")
+
+        # a streaming build killed in its merge and resumed
+        small = synth_dna_reads(stream_reads, FULL_READ_LEN, seed=0)
+        budget = small.size * 4 // 4
+        name = f"reads {stream_reads} x 200 streaming"
+        sb = SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True,
+                              store_backend="chunked", cache_budget_bytes=budget)
+        cfg = sa_build.make_config("base", "cuda")
+        (ref, wall_u), seen, _ = probed(lambda: sa_build.run(small, cfg, "cuda", sb=sb))
+        refills = seen["merge:refill"]
+        d = spill("stream")
+        kw = dict(store_backend="chunked", cache_budget_bytes=budget)
+        _, wall_k, _, _, _ = resume_build(f"{name} killed at merge:refill",
+                                          small, d, kill=("merge:refill", refills // 4),
+                                          **kw)
+        res, wall_r, launched, _, _ = resume_build(f"{name} resumed after it", small, d,
+                                                   **kw)
+        diff = same_build(f"{name} resumed", res, kept_build(ref),
+                          JOURNAL_MOVES + SANITIZER_MOVES)
+        st = res.stats
+        if st["journal_hits"] != OOC_SUPERBLOCKS or st["peak_resident_bytes"] > budget:
+            raise AssertionError(f"phase 11: {name}: {st}")
+        if launched["merge_path"] <= 0:
+            raise AssertionError(f"phase 11: {name}: merge_path not launched: {launched}")
+        counts[f"{name} resumed after merge:refill"] = launched
+        log(f"phase 11: {name}: unjournaled {wall_u:.3f} s; journaled and sanitized, "
+            f"killed at merge:refill #{refills // 4} of {refills} after {wall_k:.3f} s, "
+            f"resumed in {wall_r:.3f} s with journal_hits {OOC_SUPERBLOCKS}; "
+            f"peak_resident_bytes {st['peak_resident_bytes']} of budget {budget}; == the "
+            f"unjournaled build but {diff}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
@@ -1905,7 +2197,8 @@ def main(argv) -> int:
     scaling run).  ``--merge-ab PARENT PAIRS``: phases 1-2 and then
     ``merge_ab``; ``--gather-ab PARENT ROUNDS``: phases 1-2 and then
     ``gather_ab``; ``--merges READS LOG2``: phases 1-2 and then phase 10 at
-    READS reads and a 2^LOG2-token text.  None of these prints a result
+    READS reads and a 2^LOG2-token text; ``--resume READS LOG2``: phases 1-2
+    and then phase 11 at those sizes.  None of these prints a result
     line."""
     import torch
 
@@ -1954,6 +2247,15 @@ def main(argv) -> int:
         log(f"phase 10: {time.perf_counter() - t0:.1f} s")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv[:1] == ["--resume"] and len(argv) == 3:
+        t0 = time.perf_counter()
+        reads = synth_dna_reads(int(argv[1]), FULL_READ_LEN, seed=0)
+        text = synth_token_corpus(1 << int(argv[2]), 4, seed=0)[0]
+        phase_resume(unjournaled_cell(f"reads {argv[1]} x 200 out-of-core", reads),
+                     unjournaled_cell(f"text 2^{argv[2]} out-of-core", text))
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1975,14 +2277,23 @@ def main(argv) -> int:
     counts.update(query_counts)
     counts.update(phase_reopen(dev, reads_index))
     del reads_index
-    ooc_counts, _, tiles, ooc_ref = phase_out_of_core(dev, reads_corpus, text_tokens,
-                                                      incore_sa, incore_lcp)
+    ooc_counts, ooc_report, tiles, ooc_ref = phase_out_of_core(
+        dev, reads_corpus, text_tokens, incore_sa, incore_lcp)
     counts.update(ooc_counts)
     counts.update(phase_streaming(dev, ooc_ref))
     kern["merge_path"] = tiles["largest"]
     t0 = time.perf_counter()
     counts.update(phase_merges(dev))
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cells = []
+    for name, corpus, sa, lcp in ((READS_OOC, *ooc_ref),
+                                  (TEXT_OOC, text_tokens, incore_sa[TEXT_BUILD],
+                                   incore_lcp[TEXT_QUERY])):
+        r = ooc_report[(name, "kernels")]
+        cells.append((name, corpus, (sa, lcp, r["footprint"], r["stats"]), r["wall_s"]))
+    counts.update(phase_resume(*cells))
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",
@@ -2018,7 +2329,7 @@ def main(argv) -> int:
          f"{k} launches={launches[k]} in the {KERNEL_BUILD[k]} run "
          f"(by run: {', '.join(f'{b} {c[k]}' for b, c in counts.items())})")
         + f" equal=True max_abs_err={kern[k]['max_abs_err']}" for k in sources))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k],

@@ -74,8 +74,9 @@ class SuperblockConfig:
     store (``store_backend``, ``chunk_records``, ``cache_budget_bytes``),
     into a ``spill_dir`` and, with ``write_manifest``, an index directory;
     ``store_retries > 0`` retries transient store faults
-    (``store_backoff_s``).  ``resume`` and ``sanitize`` are ROADMAP.md
-    item 9b.  The fields are kept whole so a JAX run's configuration
+    (``store_backoff_s``), ``resume`` with a ``spill_dir`` journals the
+    build and resumes a killed one, and ``sanitize`` runs the runtime
+    sanitizer.  The fields are kept whole so a JAX run's configuration
     carries across unchanged.
     """
 

@@ -45,6 +45,7 @@ from repro_torch.core.integrity import (
     fsync_file,
     publish_file,
 )
+from repro_torch.core.sanitize import SanitizingBackend, sanitize_enabled
 from repro_torch.core.store import (
     ChunkedFileBackend,
     InMemoryBackend,
@@ -257,14 +258,11 @@ def open_index(
 
     Verification failures raise
     :class:`~repro_torch.core.integrity.CorruptionError` naming the
-    artifact.  ``REPRO_SANITIZE`` wraps the JAX package's backend in its
-    sanitizer; that is ROADMAP.md item 9b here, so the port refuses it.
+    artifact.  Under ``REPRO_SANITIZE`` the backend is wrapped in the
+    sanitizer (:class:`~repro_torch.core.sanitize.SanitizingBackend`).
     """
     if verify not in ("eager", "lazy", "off"):
         raise ValueError(f"unknown verify mode {verify!r}")
-    if os.environ.get("REPRO_SANITIZE", "") not in ("", "0"):
-        raise NotImplementedError(
-            "the sanitizing backend (REPRO_SANITIZE) is ROADMAP.md item 9b")
     manifest = read_manifest(index_dir)
     cfg = SAConfig(**manifest["sa_config"])
 
@@ -293,6 +291,8 @@ def open_index(
                                   device=device)
     else:
         raise ValueError(f"unknown store backend {store_backend!r}")
+    if sanitize_enabled():
+        backend = SanitizingBackend(backend)
 
     sa = np.load(os.path.join(index_dir, SA_FILE), mmap_mode="r")
     lcp = None

@@ -43,8 +43,17 @@ memmaps, and ``write_manifest`` finalizes it as an index directory
 The output equals the JAX package's: the suffix array, the LCP array, every
 ``Footprint`` field and every ``stats`` key but the wall times ``t_*_s``,
 and the files of a ``spill_dir`` byte for byte.  ``store_retries > 0``
-wraps the backend in a :class:`RetryingBackend`.  Resume and the sanitizer
-raise ``NotImplementedError`` naming ROADMAP.md item 9b.
+wraps the backend in a :class:`RetryingBackend`, and the sanitizer
+(``sanitize`` or ``REPRO_SANITIZE``) wraps it, and the merge's sink, in its
+checking proxies (``repro_torch.core.sanitize``).
+
+Crash safety (``resume`` with a ``spill_dir``): every block's run is spilled
+to a stable scratch directory under ``spill_dir``, on every backend, and
+journaled (``repro_torch.core.journal``) once its write is observed done; a
+re-entered build adopts every verified block run with its stats and
+footprint contributions and redoes the merge.  The journal is the JAX
+package's format, so a build killed under either package resumes in the
+other.
 """
 from __future__ import annotations
 
@@ -65,11 +74,18 @@ import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
 from repro_torch.core.distributed import lex_order, run_starts
-from repro_torch.core.integrity import publish_file
+from repro_torch.core.integrity import CorruptionError, crc32_array, publish_file
+from repro_torch.core.journal import JOURNAL_NAME, BuildJournal, verify_spilled_run
 from repro_torch.core.lcp import lcp_from_sa, pairwise_lcp
 from repro_torch.core.pipeline import DeviceRefiner, _tied, build_suffix_array
 from repro_torch.core.pipeline_exec import PipelineExecutor, pipeline_point
-from repro_torch.core.sanitize import unwrap_backend
+from repro_torch.core.sanitize import (
+    SanitizingBackend,
+    SanitizingSink,
+    check_footprint,
+    sanitize_enabled,
+    unwrap_backend,
+)
 from repro_torch.core.store import (
     DEFAULT_CACHE_BUDGET,
     ChunkedFileBackend,
@@ -78,6 +94,7 @@ from repro_torch.core.store import (
     RetryingBackend,
     StoreBackend,
     WindowCursor,
+    backend_fingerprint,
     materialize_backend,
 )
 from repro_torch.device import resolve_device
@@ -87,7 +104,6 @@ from repro_torch.core.types import WORD_BITS, WORD_MOD, Footprint, SAResult
 # the CPU); the single-block build's LCP store is discarded, so the batch
 # changes no reported number
 CUDA_LCP_BATCH = 1 << 22
-_ITEM_9B = "is ROADMAP.md item 9b"
 
 
 @dataclass(frozen=True)
@@ -170,18 +186,12 @@ def corpus_shape_of(corpus) -> Tuple[int, ...]:
     return np.shape(corpus)
 
 
-def _refuse_unported(sb: SuperblockConfig) -> None:
-    if (sb.resume or sb.sanitize
-            or os.environ.get("REPRO_SANITIZE", "") not in ("", "0")):
-        raise NotImplementedError(f"resume and the sanitizer {_ITEM_9B}")
-
-
 def _to_device(run, device) -> torch.Tensor:
     """A run (a tensor, a host array, or a spilled run's memmap, of which
     this reads a copy) as an int64 tensor on ``device``."""
     if isinstance(run, torch.Tensor):
         return run.to(device)
-    if type(run) is np.ndarray:  # not a memmap: no private copy needed
+    if type(run) is np.ndarray and run.flags.writeable:  # not a spill's view
         return torch.from_numpy(np.ascontiguousarray(run, np.int64)).to(device)
     return torch.from_numpy(np.array(run, dtype=np.int64)).to(device)
 
@@ -195,9 +205,14 @@ def _to_host(run) -> np.ndarray:
 
 
 class _Scratch:
-    """Private scratch directory for one streaming build (serialized corpus,
-    per-block SA spills); removed when the build finishes
-    (``repro.core.superblock._Scratch``).
+    """Private scratch directory for one streaming or journaled build
+    (serialized corpus, per-block SA spills); removed when the build
+    finishes, but for a failed journaled build, whose runs are what the
+    next attempt resumes from (``repro.core.superblock._Scratch``).
+
+    ``stable_dir`` (a journaled build's ``spill_dir/scratch``) is used as it
+    is, so a resumed attempt finds the previous attempt's runs; spill names
+    carry a tag of their own instance, so attempts never collide.
 
     With an ``executor`` attached (``SuperblockConfig.pipeline_depth >= 1``)
     the spill *write* runs on the background worker: the memmap is created
@@ -207,14 +222,23 @@ class _Scratch:
     """
 
     def __init__(self, parent: Optional[str],
-                 executor: Optional[PipelineExecutor] = None):
-        self.dir = tempfile.mkdtemp(prefix="sa_superblock_", dir=parent)
+                 executor: Optional[PipelineExecutor] = None,
+                 stable_dir: Optional[str] = None):
+        if stable_dir is not None:
+            os.makedirs(stable_dir, exist_ok=True)
+            self.dir = stable_dir
+        else:
+            self.dir = tempfile.mkdtemp(prefix="sa_superblock_", dir=parent)
         self._n = 0
         self._tag = uuid.uuid4().hex[:8]
         self.spilled_runs = 0
         self.spilled_bytes = 0
         self.executor = executor
         self._pending: List = []
+        # (path, write task or None) of the last spill: the journal appends
+        # the run's record once that write is observed done
+        self.last_spill: Optional[Tuple[str, object]] = None
+        self.journal: Optional[BuildJournal] = None  # closed by the wrapper
 
     def path(self, name: str) -> str:
         return os.path.join(self.dir, name)
@@ -238,9 +262,12 @@ class _Scratch:
         if self.executor is not None:
             out = np.lib.format.open_memmap(
                 p, mode="w+", dtype=arr.dtype, shape=arr.shape)
-            self._pending.append(self.executor.submit(self._fill, out, arr))
+            task = self.executor.submit(self._fill, out, arr)
+            self._pending.append(task)
+            self.last_spill = (p, task)
             return out
         np.save(p, arr)
+        self.last_spill = (p, None)
         return np.load(p, mmap_mode="r")
 
     def drain_spills(self) -> None:
@@ -788,6 +815,27 @@ class _OutputSink:
                 os.unlink(self._lcp_tmp)
 
 
+class _JournalingSink:
+    """Tee around the output sink (``repro.core.superblock._JournalingSink``):
+    every emitted piece appends a merge watermark record to the build
+    journal, with a batched fsync (the merge is redone wholesale on resume,
+    so the watermark is observability, not a unit of recovery).  Everything
+    else is the wrapped sink's."""
+
+    def __init__(self, inner, journal: BuildJournal):
+        self.inner = inner
+        self.journal = journal
+        self._emitted = 0
+
+    def append(self, piece) -> None:
+        self.inner.append(piece)
+        self._emitted += int(piece.shape[0])
+        self.journal.append({"t": "emit", "rows": self._emitted}, durable=False)
+
+    def __getattr__(self, name: str):
+        return getattr(self.inner, name)
+
+
 class _RunTile:
     """One sorted run's buffered frontier for the merge-path tile merge
     (``repro.core.superblock._RunTile``, its buffers on the run's device).
@@ -1160,20 +1208,40 @@ def build_suffix_array_superblock(
     path (the card by default) and the build runs there.  With the chunked
     backend the build is out of host RAM: see the module docstring.  The
     build closes a backend it made, never one the caller passed in, with
-    or without the retry layer of ``store_retries``.
+    or without the retry layer of ``store_retries`` and the sanitizer.
+
+    ``resume`` with a ``spill_dir`` is the journaled regime: the scratch
+    directory is ``spill_dir/scratch``, a killed attempt's orphaned
+    temporary files are swept first, and a failed build keeps its scratch
+    directory and journal for the next attempt.
     """
-    _refuse_unported(sb)
+    # a scratch directory whenever the build streams, and always when it is
+    # journaled: block runs then spill on every backend, so a resumed build
+    # has something durable to adopt
+    journaled = sb.resume and sb.spill_dir is not None
     needs_scratch = (
         isinstance(corpus, (str, os.PathLike))
         or (isinstance(corpus, StoreBackend)
             and not isinstance(corpus, InMemoryBackend))
         or (not isinstance(corpus, StoreBackend) and sb.store_backend == "chunked")
+        or journaled
     )
     if sb.spill_dir is not None:
         os.makedirs(sb.spill_dir, exist_ok=True)
-    scratch = _Scratch(sb.spill_dir) if needs_scratch else None
+    if journaled:
+        # a killed attempt cannot clean up after itself: sweep its orphaned
+        # publish temporaries (the journal and the scratch runs survive)
+        for orphan in os.listdir(sb.spill_dir):
+            if orphan.endswith((".tmp", ".tmp.npy")):
+                with contextlib.suppress(OSError):
+                    os.unlink(os.path.join(sb.spill_dir, orphan))
+        scratch = _Scratch(sb.spill_dir,
+                           stable_dir=os.path.join(sb.spill_dir, "scratch"))
+    else:
+        scratch = _Scratch(sb.spill_dir) if needs_scratch else None
     backend: Optional[StoreBackend] = None
     owns_backend = True
+    ok = False
     try:
         if isinstance(corpus, StoreBackend):
             device = corpus.device
@@ -1182,13 +1250,20 @@ def build_suffix_array_superblock(
         if sb.store_retries > 0:
             backend = RetryingBackend(backend, retries=sb.store_retries,
                                       backoff_s=sb.store_backoff_s)
-        return _build_superblock(backend, lengths, cfg, sb, scratch,
-                                 original_corpus=corpus)
+        if sanitize_enabled(sb):
+            backend = SanitizingBackend(backend)
+        res = _build_superblock(backend, lengths, cfg, sb, scratch,
+                                original_corpus=corpus)
+        ok = True
+        return res
     finally:
         if backend is not None and owns_backend:
             backend.close()
         if scratch is not None:
-            scratch.cleanup()
+            if scratch.journal is not None:
+                scratch.journal.close()  # flushed; kept on disk for a resume
+            if ok or not journaled:
+                scratch.cleanup()
 
 
 def _build_superblock(backend: StoreBackend, lengths, cfg: SAConfig,
@@ -1269,6 +1344,45 @@ def _build_superblock_phases(
         )
     assert not streaming or scratch is not None  # the wrapper provides it
 
+    # ---- the build journal: resume + spill_dir arm an fsync'd append-only
+    # journal beside the stable scratch directory.  Block runs are journaled
+    # as they become durable; a re-entered build replays the journal and
+    # adopts every verified block.  The merge is always redone from the runs.
+    jr: Optional[BuildJournal] = None
+    resumed: dict = {}
+    journal_hits = 0
+    if sb.resume and sb.spill_dir is not None and scratch is not None:
+        jpath = os.path.join(sb.spill_dir, JOURNAL_NAME)
+        fp_rec = dict(backend_fingerprint(backend))
+        fp_rec.update(superblocks=int(plan.num_superblocks),
+                      capacity=int(plan.capacity_records),
+                      merge_algorithm=sb.merge_algorithm,
+                      emit_lcp=bool(sb.emit_lcp))
+        records = BuildJournal.load(jpath)  # CorruptionError on a bad interior
+        if records:
+            if records[0].get("t") != "begin":
+                raise CorruptionError(
+                    "build journal", detail="first record is not 'begin'",
+                    path=jpath)
+            if records[0].get("fp") != fp_rec:
+                raise ValueError(
+                    "resume refused: the journal in spill_dir belongs to a "
+                    "different build (corpus/plan fingerprint mismatch) — "
+                    "remove it or use a fresh spill_dir")
+            for r in records:
+                if r.get("t") != "block":
+                    continue
+                run_path = scratch.path(r["run"])
+                if not os.path.exists(run_path):
+                    continue  # its spill never became durable: rebuild it
+                mm = verify_spilled_run(run_path, r["run_crc"],
+                                        f"spilled run {r['run']}")
+                resumed[int(r["i"])] = (mm, r)
+        jr = BuildJournal(jpath).open()
+        scratch.journal = jr  # the lifecycle wrapper closes it on exit
+        if not records:
+            jr.append({"t": "begin", "v": BuildJournal.VERSION, "fp": fp_rec})
+
     store = CorpusStore(
         None, cfg, backend=backend,
         request_capacity=min(sb.request_capacity, plan.capacity_records),
@@ -1285,10 +1399,10 @@ def _build_superblock_phases(
             max_pool_windows=max(4, min(64, (_budget(sb) // 8) // wb)))
 
     def keep_run(run):
-        """A sorted run as the merge takes it: streaming, spilled to disk
-        (a run that already is a spill's memmap stays as it is); else a
-        tensor on the store's device."""
-        if streaming:
+        """A sorted run as the merge takes it: streaming or journaled,
+        spilled to disk (a run that already is a spill's memmap stays as it
+        is); else a tensor on the store's device."""
+        if streaming or jr is not None:
             if run.shape[0] and not isinstance(run, np.memmap):
                 return scratch.spill_run(run)
             return run
@@ -1317,7 +1431,7 @@ def _build_superblock_phases(
         if pipe is None:
             return
         for j in range(next_i, min(len(blocks), next_i + pipe.depth)):
-            if j in prefetched:
+            if j in prefetched or j in resumed:
                 continue
             blo, bhi = blocks[j]
             reg = 0
@@ -1329,8 +1443,39 @@ def _build_superblock_phases(
                 pf_registered += reg
             prefetched[j] = (pipe.submit(store.stage_read, blo, bhi), reg)
 
+    # a block's journal record waits here until its run's spill write is
+    # observed done on this thread (SAL008: the journal is touched only
+    # here): a journaled run is durable before the record promising it
+    pending_journal: List[tuple] = []
+
+    def _flush_journal(force: bool = False) -> None:
+        while pending_journal:
+            rec, task = pending_journal[0]
+            if task is not None:
+                if not force and not task.done():
+                    return
+                task.result()  # re-raises a failed spill write
+            jr.append(rec)  # fsync'd: the unit of recovery
+            pending_journal.pop(0)
+
     t_stage = t_build = 0.0
     for i, (lo, hi) in enumerate(blocks):
+        pre = resumed.get(i)
+        if pre is not None:
+            # verified complete by an earlier attempt: adopt its run, stats
+            # and footprint contributions without touching the store
+            mm, rec = pre
+            local_sas.append(mm)
+            block_stats.append(rec["stats"])
+            bfc = rec.get("fpc", {})
+            fp.shuffle += bfc.get("shuffle", 0)
+            fp.fetch_request += bfc.get("fetch_request", 0)
+            fp.fetch_response += bfc.get("fetch_response", 0)
+            fp.rounds = max(fp.rounds, bfc.get("rounds", 0))
+            fp.dropped += bfc.get("dropped", 0)
+            fp.peak_records = max(fp.peak_records, rec["stats"]["num_suffixes"])
+            journal_hits += 1
+            continue
         t0 = time.perf_counter()
         entry = prefetched.pop(i, None)
         if entry is not None:
@@ -1354,7 +1499,8 @@ def _build_superblock_phases(
             lens_b = None if lengths is None else np.asarray(lengths)[lo:hi]
             res = build_suffix_array(block, lengths=lens_b, cfg=cfg, device=dev)
             sa_b = res.suffix_array + (np.int64(lo) << plan.stride_bits)
-        local_sas.append(keep_run(sa_b))
+        run = keep_run(sa_b)
+        local_sas.append(run)
         bf = res.footprint
         fp.shuffle += bf.shuffle
         fp.fetch_request += bf.fetch_request
@@ -1363,9 +1509,28 @@ def _build_superblock_phases(
         fp.dropped += bf.dropped
         fp.peak_records = max(fp.peak_records, res.stats["num_suffixes"])
         block_stats.append(res.stats)
+        if jr is not None and isinstance(run, np.memmap):
+            path, task = scratch.last_spill
+            pending_journal.append(({
+                "t": "block", "i": i,
+                "run": os.path.basename(path),
+                "run_crc": crc32_array(sa_b),
+                "rows": int(sa_b.shape[0]),
+                "stats": res.stats,
+                "fpc": {
+                    "shuffle": int(bf.shuffle),
+                    "fetch_request": int(bf.fetch_request),
+                    "fetch_response": int(bf.fetch_response),
+                    "rounds": int(bf.rounds),
+                    "dropped": int(bf.dropped),
+                },
+            }, task))
+            _flush_journal()
         t_build += time.perf_counter() - t0
     if scratch is not None:
         scratch.drain_spills()  # spilled runs must be on disk before reads
+    if jr is not None:
+        _flush_journal(force=True)  # every run is durable now
 
     # ---- phase 3: boundary-exact merge via the store --------------------
     t_merge0 = time.perf_counter()
@@ -1388,6 +1553,13 @@ def _build_superblock_phases(
     sink = _OutputSink(total_suffixes, dev, pair_lcp=pair_lcp, executor=pipe,
                        memmap_path=out_path, lcp_path=lcp_path)
     sinks.append(sink)
+    if jr is not None:
+        sink = _JournalingSink(sink, jr)  # emitted-rows watermark records
+    if sanitize_enabled(sb):
+        # order-checks the emitted pieces through a private audit store: the
+        # build store's traffic counters stay the unsanitized build's
+        sink = SanitizingSink(sink, backend, cfg,
+                              request_capacity=sb.request_capacity)
     peak_candidates = 0
 
     cur = WindowCursor(store)
@@ -1465,6 +1637,8 @@ def _build_superblock_phases(
                 sink.append(p)
     sa = sink.result()
     t_merge = time.perf_counter() - t_merge0
+    if sanitize_enabled(sb):
+        check_footprint(store, backend)
 
     dev_req = refiner.requests if refiner else 0
     dev_req_bytes = refiner.request_bytes if refiner else 0
@@ -1506,10 +1680,9 @@ def _build_superblock_phases(
         "spilled_runs": scratch.spilled_runs if scratch else 0,
         "spilled_bytes": scratch.spilled_bytes if scratch else 0,
         "emit_lcp": bool(sb.emit_lcp),
-        # the sanitizer and the journal are item 9b
-        "sanitized": False,
-        "journaled": False,
-        "journal_hits": 0,
+        "sanitized": sanitize_enabled(sb),
+        "journaled": jr is not None,
+        "journal_hits": int(journal_hits),
         "store_retry_attempts": int(getattr(backend, "retry_attempts", 0)),
         "store_retried_calls": int(getattr(backend, "retried_calls", 0)),
         "pipeline_depth": int(sb.pipeline_depth),
@@ -1520,6 +1693,11 @@ def _build_superblock_phases(
     res = SAResult(suffix_array=sa, footprint=fp, stats=stats, lcp=sink.lcp)
     if sb.write_manifest:
         _write_index_manifest(res, backend, cfg, sb, scratch)
+    if jr is not None:
+        # the terminal record, then the journal retires: the build is
+        # complete and its artifacts are published
+        jr.append({"t": "done", "rows": int(sa.shape[0])})
+        jr.finalize()
     return res
 
 

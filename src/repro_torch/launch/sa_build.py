@@ -10,31 +10,29 @@
         --cache-budget 65536             # disk-streamed: bounded resident bytes
     PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 2000 \
         --index-dir /data/ix             # persist a queryable index directory
+    PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 2000 \
+        --superblocks 4 --index-dir /data/ix --resume  # journaled; resumable
 
 The ``--mode scheme`` path of ``repro.launch.sa_build``, single-pass or
 out-of-core (``--superblocks``, ``--max-records-per-run``, with
 ``--merge-algorithm``, ``--merge-backend``, ``--merge-tile``,
 ``--pipeline-depth`` and ``--store-retries``), streaming (``--store-backend
 chunked``, ``--cache-budget``, ``--chunk-records``, ``--corpus-file``) and
-persisted (``--index-dir``), with the same flags, corpus synthesis and
-printout.  ``--corpus-file`` names a chunked corpus
+persisted (``--index-dir``) and journaled (``--resume``, which needs
+``--index-dir``: re-running the same command after a crash resumes the
+build from the journaled block runs), with the same flags, corpus synthesis
+and printout.  ``--corpus-file`` names a chunked corpus
 file: an existing one is built as it is, a fresh path gets the synthesized
 corpus written there first and kept.  ``--device cuda`` (the default) runs
 on ``cuda:0`` with the hand-written kernels (``use_pallas=True``);
-``--device cpu`` runs the plain PyTorch path.  Flags of paths not yet ported
-exit with an error naming the ROADMAP.md item that ports them: ``--resume``
-is item 9b, ``--mode terasort|doubling`` item 11.
+``--device cpu`` runs the plain PyTorch path.  ``--mode terasort|doubling``
+is not ported yet and exits with an error naming ROADMAP.md item 11.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-
-# flag -> (value that means "not used", ROADMAP.md item that ports its path)
-UNPORTED = {
-    "resume": (False, "9b"),
-}
 
 
 def parse_args(argv=None):
@@ -95,16 +93,14 @@ def parse_args(argv=None):
                     help="retry transient store-fetch faults this many times "
                          "(capped exponential backoff) before failing the "
                          "build; 0 = fail fast")
-    # the crash-safety flag of repro.launch.sa_build not ported yet:
-    # accepted so scripts keep working, refused unless left at its default
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="journal the build in --index-dir and resume a "
+                         "killed one from its journaled block runs")
     args = ap.parse_args(argv)
     if args.mode != "scheme":
         ap.error(f"--mode {args.mode} is not ported yet (ROADMAP.md item 11)")
-    for name, (unused, item) in UNPORTED.items():
-        if getattr(args, name) != unused:
-            flag = "--" + name.replace("_", "-")
-            ap.error(f"{flag} is not ported yet (ROADMAP.md item {item})")
+    if args.resume and not args.index_dir:
+        ap.error("--resume requires --index-dir (the journal lives there)")
     return args
 
 
@@ -147,6 +143,7 @@ def make_superblock_config(args):
         emit_lcp=bool(args.index_dir),
         write_manifest=bool(args.index_dir),
         pipeline_depth=args.pipeline_depth,
+        resume=args.resume,
         store_retries=args.store_retries,
     )
 
@@ -193,6 +190,9 @@ def report(res, dt: float, mode: str = "scheme", index_dir=None) -> None:
               f"{res.stats['store_cache_hit_rate']:.2f}, "
               f"{res.stats['spilled_runs']} spilled runs "
               f"({res.stats['spilled_bytes']}B)")
+    if res.stats.get("journaled"):
+        print(f"resume: {res.stats['journal_hits']} of "
+              f"{res.stats['superblocks']} blocks recovered from the journal")
     if index_dir:
         print(f"index: {res.stats['index_dir']} (serve with "
               f"python -m repro_torch.launch.serve --index-dir {index_dir})")

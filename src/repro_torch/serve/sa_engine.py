@@ -614,11 +614,18 @@ def _serving_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
                      device) -> StoreBackend:
     """Backend for querying a freshly built, non-persisted index: the
     caller's backend, a chunked one over a corpus file, or a new in-memory
-    one over the array on ``device``."""
+    one over the array on ``device``; wrapped in the sanitizer when it is
+    on (``repro.serve.sa_engine._serving_backend``)."""
+    from repro_torch.core.sanitize import SanitizingBackend, sanitize_enabled
+
     if isinstance(corpus, StoreBackend):
-        return corpus
-    if isinstance(corpus, (str, os.PathLike)):
-        return ChunkedFileBackend(os.fspath(corpus), cfg,
-                                  cache_budget_bytes=max(sb.cache_budget_bytes, 0),
-                                  device=device)
-    return InMemoryBackend(np.asarray(corpus, np.int32), cfg, device=device)
+        backend = corpus
+    elif isinstance(corpus, (str, os.PathLike)):
+        backend = ChunkedFileBackend(os.fspath(corpus), cfg,
+                                     cache_budget_bytes=max(sb.cache_budget_bytes, 0),
+                                     device=device)
+    else:
+        backend = InMemoryBackend(np.asarray(corpus, np.int32), cfg, device=device)
+    if sanitize_enabled(sb) and not isinstance(backend, SanitizingBackend):
+        backend = SanitizingBackend(backend)
+    return backend

@@ -23,7 +23,12 @@ def _stdout(module, *args, cwd=None):
 
 
 def _run(module, *args, cwd=None):
-    lines = _stdout(module, *args, cwd=cwd)
+    return _parsed(_stdout(module, *args, cwd=cwd))
+
+
+def _parsed(lines):
+    """A launcher printout's suffix count, unit lines, plan line, stats
+    without the walls, and the walls' names."""
     count = next(ln.split("suffixes=")[1].split()[0] for ln in lines
                  if "suffixes=" in ln)
     units = [ln for ln in lines if ln.startswith("  ")]
@@ -61,24 +66,98 @@ def test_launcher_matches_repro(flags, tmp_path):
                                for f in flags)
 
 
+RESUME_ERROR = "--resume requires --index-dir (the journal lives there)"
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "doubling"], "11"),
     (["--mode", "terasort"], "11"),
-    # ported, but 134 superblocks take repro about two minutes on a CPU
-    (["--max-records-per-run", "1000", "--store-retries", "2", "--resume"], "9b"),
-    (["--index-dir", "ix", "--resume"], "9b"),
-    (["--resume"], "9b"),
+    (["--max-records-per-run", "1000", "--store-retries", "2", "--resume"], None),
+    (["--index-dir", "ix", "--resume", "--mode", "terasort"], "11"),
+    (["--resume"], None),
     (["--cache-budget", "65536", "--mode", "doubling"], "11"),
 ], ids=["--mode0", "--mode1", "--max-records-per-run", "--index-dir", "--resume",
         "--cache-budget"])
 def test_unported_flags_exit_nonzero(flags, item, capsys):
     """Flags of paths not ported yet exit naming their ROADMAP.md item; the
-    out-of-core, merge, retry, streaming and index flags are ported, so those
-    cases pair them with one that is not."""
+    out-of-core, merge, retry, streaming, index and resume flags are
+    ported, so those cases pair them with one that is not.  ``--resume``
+    without ``--index-dir`` (``item`` None) exits with repro's error."""
     with pytest.raises(SystemExit) as e:
         sa_build.parse_args(flags)
     assert e.value.code != 0
-    assert f"ROADMAP.md item {item})" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert (RESUME_ERROR if item is None else f"ROADMAP.md item {item})") in err
+
+
+def test_resume_without_index_dir_exits_as_repro(capsys):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", "repro.launch.sa_build", "--reads", "20",
+                           "--resume"], capture_output=True, text=True, env=env,
+                          timeout=600)
+    with pytest.raises(SystemExit) as e:
+        sa_build.parse_args(["--reads", "20", "--resume"])
+    err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert (e.value.code, err.split(": error: ")[1]) == (
+        proc.returncode, proc.stderr.strip().splitlines()[-1].split(": error: ")[1])
+    assert proc.returncode == 2 and err.endswith(RESUME_ERROR)
+
+
+def test_resume_flag_matches_repro(tmp_path):
+    """``--index-dir D --resume``: a journaled build with repro's printout,
+    its ``resume:`` line included, and repro's index files."""
+    got = {}
+    for module, extra in (("repro.launch.sa_build", []),
+                          ("repro_torch.launch.sa_build", ["--device", "cpu"])):
+        ix = str(tmp_path / module.split(".")[0])
+        flags = ["--reads", "40", "--read-len", "18", "--superblocks", "3",
+                 "--index-dir", ix, "--resume", *extra]
+        lines = _stdout(module, *flags)
+        got[module] = ([ln for ln in lines if ln.startswith("resume: ")], _parsed(lines), ix)
+    (lines, stats, gix), (wlines, wstats, wix) = (got["repro_torch.launch.sa_build"],
+                                                  got["repro.launch.sa_build"])
+    assert lines == wlines == ["resume: 0 of 3 blocks recovered from the journal"]
+    assert stats[3].pop("index_dir") == gix and wstats[3].pop("index_dir") == wix
+    assert stats == wstats and stats[3]["journaled"]
+    import filecmp
+
+    for name in ("suffix_array.npy", "lcp.npy"):
+        assert filecmp.cmp(os.path.join(gix, name), os.path.join(wix, name),
+                           shallow=False)
+
+
+def test_resume_after_a_kill(tmp_path, monkeypatch, capsys):
+    """A launcher build killed in its merge, run again with the same flags,
+    recovers every block from the journal and writes repro's index."""
+    import repro_torch.core.superblock as sbmod
+
+    ix = str(tmp_path / "ix")
+    flags = ["--device", "cpu", "--reads", "40", "--read-len", "18",
+             "--superblocks", "3", "--index-dir", ix, "--resume"]
+    orig = sbmod.pipeline_point
+
+    def kill(label):
+        orig(label)
+        if label == "merge:rank":
+            raise KeyboardInterrupt(label)
+
+    monkeypatch.setattr(sbmod, "pipeline_point", kill)
+    with pytest.raises(KeyboardInterrupt):
+        sa_build.main(flags)
+    assert os.path.exists(os.path.join(ix, "build.journal"))
+    monkeypatch.setattr(sbmod, "pipeline_point", orig)
+    capsys.readouterr()
+    sa_build.main(flags)
+    assert "resume: 3 of 3 blocks recovered from the journal" in capsys.readouterr().out
+    wix = str(tmp_path / "want")
+    _stdout("repro.launch.sa_build", "--reads", "40", "--read-len", "18",
+            "--superblocks", "3", "--index-dir", wix)
+    import filecmp
+
+    for name in ("suffix_array.npy", "lcp.npy"):
+        assert filecmp.cmp(os.path.join(ix, name), os.path.join(wix, name),
+                           shallow=False)
+    assert not os.path.exists(os.path.join(ix, "build.journal"))
 
 
 def test_out_of_core_flags_parse_into_the_superblock_config():
@@ -90,7 +169,10 @@ def test_out_of_core_flags_parse_into_the_superblock_config():
     assert (sb.num_superblocks, sb.max_records_per_run, sb.merge_backend,
             sb.merge_tile, sb.pipeline_depth, sb.merge_algorithm,
             sb.store_retries) == (3, 9, "device", 5, 0, "kway", 4)
-    assert not sb.emit_lcp
+    assert not sb.emit_lcp and not sb.resume
+    args = sa_build.parse_args(["--index-dir", "ix", "--resume"])
+    sb = sa_build.make_superblock_config(args)
+    assert sb.resume and sb.spill_dir == "ix" and sb.write_manifest
 
 
 def test_launcher_config_uses_kernels_on_the_card_only():

@@ -525,11 +525,31 @@ def test_manifest_truncation_is_corruption(index_dir):
 
 
 def test_open_refuses_the_sanitizer(index_dir, monkeypatch):
-    """repro wraps the opened backend in its sanitizer under REPRO_SANITIZE;
-    the sanitizer is ROADMAP.md item 9b, so the port says so."""
+    """Under REPRO_SANITIZE the opened backend is wrapped in the sanitizer,
+    as repro wraps it, on either store: the index serves repro's answers,
+    and the sanitizer makes repro's checks over them."""
+    from repro.core.sanitize import SanitizingBackend as RefSanitizing
+    from repro_torch.core.sanitize import SanitizingBackend
+
     monkeypatch.setenv("REPRO_SANITIZE", "1")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        index_io.open_index(index_dir, device="cpu")
+    corpus = _corpus()
+    for store_backend in ("chunked", "memory"):
+        backend, *_ = index_io.open_index(index_dir, store_backend=store_backend,
+                                          device="cpu")
+        assert isinstance(backend, SanitizingBackend)
+        backend.close()
+        with SuffixArrayIndex.open(index_dir, store_backend=store_backend,
+                                   device="cpu") as port:
+            want = RefIndex.open(index_dir, store_backend=store_backend)
+            assert _answers(port, corpus) == _answers(want, corpus)
+            got_b, want_b = port.store.backend, want.store.backend
+            assert isinstance(got_b, SanitizingBackend)
+            assert isinstance(want_b, RefSanitizing)
+            assert (got_b.checks, got_b.oracle_windows_checked) == (
+                want_b.checks, want_b.oracle_windows_checked)
+            assert got_b.checks > 0
+            assert port.stats() == want.stats()
+            want.close()
 
 
 # ---------------------------------------------------------------------------
@@ -541,6 +561,7 @@ TEXT, _ = synth_token_corpus(900, 4, seed=3)
 INDEX_CASES = {  # id -> (corpus, SuperblockConfig keywords)
     "reads-in-core": (READS, {}),
     "reads-out-of-core": (READS, dict(num_superblocks=3)),
+    "reads-out-of-core-resume": (READS, dict(num_superblocks=3, resume=True)),
     "reads-streaming": (READS, dict(num_superblocks=3, store_backend="chunked",
                                     cache_budget_bytes=READS.size)),
     "text-streaming": (TEXT, dict(num_superblocks=3, store_backend="chunked",

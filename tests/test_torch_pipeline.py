@@ -134,13 +134,19 @@ def test_auto_out_of_core_plans_match_repro(sb):
     _assert_auto_matches_repro(sb)
 
 
-def _assert_auto_matches_repro(sb):
+def _assert_auto_matches_repro(sb, spill=None):
+    """``spill``: a directory under which each package gets a ``spill_dir``
+    of its own."""
     from repro.core.superblock import build_suffix_array_auto as ref_auto
     from repro_torch.config import SuperblockConfig as PortSuperblockConfig
 
-    want = ref_auto(_reads(), cfg=RefConfig(**K4), sb=SuperblockConfig(**sb))
+    dirs = {pkg: {} if spill is None else {"spill_dir": str(spill / pkg)}
+            for pkg in ("repro", "port")}
+    want = ref_auto(_reads(), cfg=RefConfig(**K4),
+                    sb=SuperblockConfig(**{**sb, **dirs["repro"]}))
     got = build_suffix_array_auto(_reads(), cfg=SAConfig(**K4),
-                                  sb=PortSuperblockConfig(**sb), device="cpu")
+                                  sb=PortSuperblockConfig(**{**sb, **dirs["port"]}),
+                                  device="cpu")
     np.testing.assert_array_equal(got.suffix_array, want.suffix_array)
     np.testing.assert_array_equal(got.suffix_array, naive_sa_reads(_reads()))
     assert dataclasses.asdict(got.footprint) == dataclasses.asdict(want.footprint)
@@ -150,41 +156,43 @@ def _assert_auto_matches_repro(sb):
     assert got.stats["superblocks"] > 1
     if sb.get("emit_lcp"):
         np.testing.assert_array_equal(got.lcp, want.lcp)
+    return got
 
 
 @pytest.mark.parametrize("sb,item", [
     (SuperblockConfig(write_manifest=True), "write_manifest needs spill_dir"),
     (SuperblockConfig(num_superblocks=2, merge_algorithm="kway"), None),
     (SuperblockConfig(num_superblocks=2, merge_algorithm="rerank"), None),
-    (SuperblockConfig(num_superblocks=2, resume=True), "9b"),
-    (SuperblockConfig(num_superblocks=2, sanitize=True), "9b"),
+    (SuperblockConfig(num_superblocks=2, resume=True), None),
+    (SuperblockConfig(num_superblocks=2, sanitize=True), None),
     (SuperblockConfig(num_superblocks=2, store_retries=2), None),
 ], ids=["manifest", "kway", "rerank", "resume", "sanitize", "store_retries"])
-def test_auto_refuses_out_of_core_plans(sb, item):
-    """Paths not ported raise naming their ROADMAP item; a manifest without
-    a ``spill_dir`` (ported) is refused as ``repro`` refuses it.  The k-way
-    and re-rank merges and store retries (``item`` None), refused until
-    they were ported, build as ``repro`` builds them."""
+def test_auto_refuses_out_of_core_plans(sb, item, tmp_path):
+    """A manifest without a ``spill_dir`` is refused as ``repro`` refuses
+    it.  Every other plan here (``item`` None) was refused until its path
+    was ported, and builds as ``repro`` builds it: the k-way and re-rank
+    merges, store retries, the sanitizer, and resume, journaled in a
+    ``spill_dir`` of its own."""
     if item is None:
-        _assert_auto_matches_repro(dataclasses.asdict(sb))
+        got = _assert_auto_matches_repro(dataclasses.asdict(sb),
+                                         spill=tmp_path if sb.resume else None)
+        assert got.stats["journaled"] == sb.resume
+        assert got.stats["sanitized"] == sb.sanitize
         return
-    if sb.write_manifest:
-        with pytest.raises(ValueError, match=item):
-            build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
-        from repro.core.superblock import build_suffix_array_auto as ref_auto
-
-        with pytest.raises(ValueError, match=item):
-            ref_auto(_reads(), cfg=RefConfig(**K4), sb=sb)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
+    with pytest.raises(ValueError, match=item):
         build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), sb=sb, device="cpu")
+    from repro.core.superblock import build_suffix_array_auto as ref_auto
+
+    with pytest.raises(ValueError, match=item):
+        ref_auto(_reads(), cfg=RefConfig(**K4), sb=sb)
 
 
 def test_auto_refuses_the_sanitizer_from_the_environment(monkeypatch):
+    """``REPRO_SANITIZE=1`` sanitizes the out-of-core build, as in repro: the
+    same SA, Footprint and stats."""
     monkeypatch.setenv("REPRO_SANITIZE", "1")
-    with pytest.raises(NotImplementedError, match="item 9b$"):
-        build_suffix_array_auto(_reads(), cfg=SAConfig(**K4), device="cpu",
-                                sb=SuperblockConfig(num_superblocks=2))
+    got = _assert_auto_matches_repro(dict(num_superblocks=2))
+    assert got.stats["sanitized"]
 
 
 @pytest.mark.parametrize("shape", [(10,), (1,), (7,), (100,), (9, 5), (40, 12)],

@@ -27,6 +27,8 @@ SLICE_MODULES = [
     "repro_torch.core.oracle",
     "repro_torch.core.integrity",
     "repro_torch.core.index_io",
+    "repro_torch.core.journal",
+    "repro_torch.core.sanitize",
     "repro_torch.data.corpus",
     "repro_torch.data.chunk_store",
     "repro_torch.kernels",

@@ -202,13 +202,15 @@ def test_index_defaults_to_the_card():
     ("sanitize", 9), ("superblocks", 9), ("resume", 9), ("store_retries", 9),
 ])
 def test_unported_paths_raise(call, item, tmp_path, monkeypatch):
-    """Paths of ROADMAP item 9b raise naming it.  Item 8 (persistence) is
-    ported: its calls now do what ``repro``'s do on the same input: opening
-    a directory with no manifest and building from a missing corpus file
-    raise ``FileNotFoundError``; ``save`` and ``build(index_dir=...)``
-    write a directory that reopens with the same answers.  So are the k-way
-    merge over several superblocks and store retries (item 9b, steps 1-2):
-    their indexes equal ``repro``'s."""
+    """Every path here raised naming its ROADMAP item until it was ported.
+    Item 8 (persistence) is ported: its calls now do what ``repro``'s do on
+    the same input: opening a directory with no manifest and building from
+    a missing corpus file raise ``FileNotFoundError``; ``save`` and
+    ``build(index_dir=...)`` write a directory that reopens with the same
+    answers.  So is item 9b: the k-way merge over several superblocks,
+    store retries, the sanitizer (``REPRO_SANITIZE``, which also wraps the
+    serving backend) and resume (journaled in the index directory): their
+    indexes equal ``repro``'s."""
     reads = np.random.default_rng(0).integers(1, 5, size=(12, 6)).astype(np.int32)
     cfg = SAConfig(vocab_size=4)
     build = lambda corpus=reads, **kw: SuffixArrayIndex.build(  # noqa: E731
@@ -234,26 +236,31 @@ def test_unported_paths_raise(call, item, tmp_path, monkeypatch):
         with SuffixArrayIndex.open(ix, device="cpu") as idx:
             assert idx.align(pats) == want.align(pats)
         return
-    if call in ("superblocks", "store_retries"):
-        sb = (dict(num_superblocks=3, merge_algorithm="kway") if call == "superblocks"
-              else dict(store_retries=2))
-        want = ref_engine.SuffixArrayIndex.build(reads, cfg=RefConfig(vocab_size=4),
-                                                 sb=RefSB(**sb))
-        got = build(sb=SuperblockConfig(**sb))
-        np.testing.assert_array_equal(got.sa, np.asarray(want.sa))
-        np.testing.assert_array_equal(got.lcp, np.asarray(want.lcp))
-        walls = [k for k in want.build_stats if k.startswith("t_")]
-        assert ({k: v for k, v in got.build_stats.items() if k not in walls}
-                == {k: v for k, v in want.build_stats.items() if k not in walls})
-        pats = [reads[2, 1:4], reads[5, :3], np.array([4, 4], np.int64)]
-        assert got.align(pats) == want.align(pats)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if call == "sanitize":
-            monkeypatch.setenv("REPRO_SANITIZE", "1")
-            build()
-        else:
-            build(sb=SuperblockConfig(resume=True))
+    sb = {"superblocks": dict(num_superblocks=3, merge_algorithm="kway"),
+          "store_retries": dict(store_retries=2), "sanitize": {},
+          "resume": dict(num_superblocks=3, resume=True)}[call]
+    dirs = {"got": {}, "want": {}}
+    if call == "resume":
+        dirs = {k: dict(index_dir=str(tmp_path / k)) for k in dirs}
+    if call == "sanitize":
+        monkeypatch.setenv("REPRO_SANITIZE", "1")
+    want = ref_engine.SuffixArrayIndex.build(reads, cfg=RefConfig(vocab_size=4),
+                                             sb=RefSB(**sb), **dirs["want"])
+    got = build(sb=SuperblockConfig(**sb), **dirs["got"])
+    np.testing.assert_array_equal(got.sa, np.asarray(want.sa))
+    np.testing.assert_array_equal(got.lcp, np.asarray(want.lcp))
+    walls = [k for k in want.build_stats if k.startswith("t_")] + ["index_dir"]
+    assert ({k: v for k, v in got.build_stats.items() if k not in walls}
+            == {k: v for k, v in want.build_stats.items() if k not in walls})
+    pats = [reads[2, 1:4], reads[5, :3], np.array([4, 4], np.int64)]
+    assert got.align(pats) == want.align(pats)
+    assert got.stats()["backend"] == want.stats()["backend"]
+    if call == "sanitize":
+        assert got.stats()["backend"] == "SanitizingBackend"
+        assert got.store.backend.checks == want.store.backend.checks > 0
+    if call == "resume":
+        assert got.build_stats["journaled"] and got.build_stats["journal_hits"] == 0
+    got.close()
 
 
 def test_superblock_config_carries_across():
