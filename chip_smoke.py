@@ -7,6 +7,7 @@
     python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
     python3 chip_smoke.py --merges 5000 20  # phase 10 only, at these sizes
     python3 chip_smoke.py --resume 125000 26  # phase 11 only, at these sizes
+    python3 chip_smoke.py --build-modes 1000000 26  # phase 12 only, at these sizes
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -118,12 +119,28 @@ each of which fails loudly:
    chunked store at a quarter of the corpus bytes, journaled and
    sanitized, killed a quarter of the way through the merge's refills and
    resumed: the unjournaled streaming build, ``peak_resident_bytes``
-   within the budget.  Each wall is printed beside the unjournaled one.
+   within the budget.  Each wall is printed beside the unjournaled one;
+12. the other build modes through the launcher's ``run`` on the card:
+   ``--mode terasort`` over phase 5's reads (its SA must equal phase 5's
+   in-core SA, and the scheme's shuffle bytes over TeraSort's must be
+   exactly 16 / (L + 9)), ``--mode doubling`` over phase 5's text (phase
+   5's SA) and over the reads cut to ``OOC_READS``, flattened with a
+   separator after every read (a permutation, 2^20 sampled pairs in text
+   order), each with its wall, suffixes/s, peak device memory and the wall
+   of every doubling round; then ``find_duplicate_spans`` and
+   ``dedup_corpus`` in modes ``scheme`` and ``doubling`` over a 2^20-token
+   text with planted duplicate spans: the same spans, mask and stats, and
+   one copy of every intact planted span masked.  The TeraSort and text
+   doubling builds are profiled once more, as phase 6 profiles.  Nothing dropped or
+   unresolved, and no kernel launched: neither mode of ``src/repro`` calls
+   one.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
 phases 1-2 and then phase 10 alone at those sizes, ``--resume READS LOG2``
-phase 11 alone (against unjournaled builds it makes itself; no result line).
+phase 11 alone (against unjournaled builds it makes itself; no result line),
+``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
+makes itself; no result line).
 Without CUDA, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
@@ -187,6 +204,9 @@ STREAM_READS = 5_000
 MERGE_READS = 500
 MERGE_TEXT_LOG2 = 18
 STREAM_MERGE_READS = 500
+# phase 12: the dedup cell, a 2^20-token text with planted duplicate spans
+# (without them a random 4-token text has no repeat of 32 tokens)
+DEDUP_LOG2, DEDUP_FRACTION, DEDUP_SPAN = 20, 0.05, 64
 
 
 def log(msg: str) -> None:
@@ -989,7 +1009,8 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
         log(f"phase 5: {name}: kernel == plain (SA, Footprint, stats), 0 dropped, "
             f"0 unresolved, permutation ok, {PAIR_SAMPLES} sampled pairs ordered")
         del sa, flat, pos
-    return counts, {name: results[(name, True)].suffix_array for name, _ in builds}
+    return (counts, {name: results[(name, True)].suffix_array for name, _ in builds},
+            {name: results[(name, True)].footprint for name, _ in builds})
 
 
 KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
@@ -1037,8 +1058,9 @@ def by_kind(ms):
     return ", ".join(f"{c} {t:.1f} ms" for c, t in sorted(out.items(), key=lambda x: -x[1]))
 
 
-def phase_profile(builds):
-    """Where one kernel-path build of each cell spends its device time."""
+def phase_profile(builds, mode="scheme", phase=6):
+    """Where one kernel-path build of each cell, in ``mode``, spends its
+    device time."""
     import torch
 
     from repro_torch.launch import sa_build
@@ -1046,9 +1068,9 @@ def phase_profile(builds):
     for name, corpus in builds:
         cfg = sa_build.make_config("base", "cuda")
         torch.cuda.empty_cache()
-        dt, ms, _ = profiled(lambda c=corpus, g=cfg: sa_build.run(c, g, "cuda"))
+        dt, ms, _ = profiled(lambda c=corpus, g=cfg: sa_build.run(c, g, "cuda", mode=mode))
         busy = sum(ms.values())
-        log(f"phase 6: {name} profiled: wall {dt * 1e3:.1f} ms, device busy "
+        log(f"phase {phase}: {name} profiled: wall {dt * 1e3:.1f} ms, device busy "
             f"{busy:.1f} ms ({100 * busy / (dt * 1e3):.1f} % of wall)")
         log("  by kind: " + by_kind(ms))
         for key, t in sorted(ms.items(), key=lambda x: -x[1])[:6]:
@@ -2049,6 +2071,149 @@ def phase_resume(reads_cell, text_cell, stream_reads=STREAM_MERGE_READS):
     return counts
 
 
+def count_name(n: int) -> str:
+    """1000000 -> "1M", 125000 -> "125K", 500 -> "500"."""
+    for unit, size in (("M", 10**6), ("K", 10**3)):
+        if n >= size and n % size == 0:
+            return f"{n // size}{unit}"
+    return str(n)
+
+
+def scheme_references(builds):
+    """In-core kernel-path scheme builds of ``builds`` ((name, corpus)
+    pairs), as phase 5 makes them: (SAs, Footprints) by name."""
+    from repro_torch.launch import sa_build
+
+    sas, fps = {}, {}
+    for name, corpus in builds:
+        res, dt = sa_build.run(corpus, sa_build.make_config("base", "cuda"), "cuda")
+        log(f"phase 12: {name} scheme reference: {dt:.3f} s wall")
+        sas[name], fps[name] = res.suffix_array, res.footprint
+    return sas, fps
+
+
+def mode_build(name, corpus, mode):
+    """One build through the launcher's ``run`` in ``mode`` on the card:
+    (result, wall, launches, peak bytes, per-round walls of a doubling
+    build)."""
+    import torch
+
+    from repro_torch.core import prefix_doubling
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sa_build
+
+    walls = []
+    real = prefix_doubling._round
+
+    def timed_round(*args, **kw):  # the round loop synchronises every round
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefix_doubling._round = timed_round
+    reset_launch_counts()
+    try:
+        res, dt = sa_build.run(corpus, sa_build.make_config("base", "cuda"), "cuda",
+                               mode=mode)
+    finally:
+        prefix_doubling._round = real
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = res.stats["num_suffixes"]
+    log(f"phase 12: {name}: {dt:.3f} s wall, {n / dt:.0f} suffixes/s, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launched}")
+    sa_build.report(res, dt, mode)
+    if any(launched.values()):
+        raise AssertionError(f"phase 12: {name}: a kernel launched: {launched}")
+    if res.stats["dropped"] or res.stats.get("unresolved", 0):
+        raise AssertionError(f"phase 12: {name}: {res.stats}")
+    return res, dt, launched, peak, walls
+
+
+def phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp):
+    """Phase 12 (see the module docstring).  ``incore_sa`` and ``scheme_fp``
+    hold phase 5's kernel-path SAs and Footprints by build.  Returns the
+    launches of each build, by build."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.corpus import flatten_reads_with_separators, synth_token_corpus
+    from repro_torch.data.dedup import dedup_corpus, find_duplicate_spans
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    counts = {}
+    r, l = reads_corpus.shape
+    name = f"terasort reads {count_name(r)} x {l}"
+    res, dt, counts[name], _, _ = mode_build(name, reads_corpus, "terasort")
+    if not np.array_equal(res.suffix_array, incore_sa[READS_BUILD]):
+        raise AssertionError(f"phase 12: {name}: SA != the in-core scheme build's")
+    scheme, tera = scheme_fp[READS_BUILD].shuffle, res.footprint.shuffle
+    if scheme * (l + 9) != tera * 16:
+        raise AssertionError(f"phase 12: shuffle ratio {scheme}/{tera} != 16/{l + 9}")
+    log(f"phase 12: {name}: SA == phase 5's in-core SA; shuffle scheme/terasort "
+        f"{scheme}/{tera} = 16/{l + 9} ({scheme / tera:.6f}); materialized "
+        f"{res.footprint.materialized} B")
+    del res
+    phase_profile([(name, reads_corpus)], mode="terasort", phase=12)
+
+    name = f"doubling text 2^{text_tokens.shape[0].bit_length() - 1}"
+    res, dt, counts[name], _, walls = mode_build(name, text_tokens, "doubling")
+    if not np.array_equal(res.suffix_array, incore_sa[TEXT_BUILD]):
+        raise AssertionError(f"phase 12: {name}: SA != the in-core scheme build's")
+    log(f"phase 12: {name}: SA == phase 5's in-core SA; rounds {res.stats['rounds']}, "
+        f"round walls {[round(w, 4) for w in walls]} s")
+    del res
+    phase_profile([(name, text_tokens)], mode="doubling", phase=12)
+
+    cut = reads_corpus[:OOC_READS]
+    name = f"doubling reads {count_name(cut.shape[0])} flattened"
+    res, dt, counts[name], _, walls = mode_build(name, cut, "doubling")
+    flat = torch.from_numpy(flatten_reads_with_separators(cut)).to(dev)
+    sa = torch.from_numpy(res.suffix_array).to(dev)
+    check_permutation(sa, torch.arange(flat.shape[0], device=dev))
+    # text order across the separators: shift the tokens up one so that only
+    # the stream's end (0) stops a compare and the separator compares as 1
+    check_sampled_order(flat + 1, sa, sa, seed=7)
+    log(f"phase 12: {name}: {flat.shape[0]} tokens, permutation ok, {PAIR_SAMPLES} "
+        f"sampled pairs ordered; rounds {res.stats['rounds']}, round walls "
+        f"{[round(w, 4) for w in walls]} s")
+    del res, flat, sa
+
+    toks, planted = synth_token_corpus(1 << DEDUP_LOG2, 4, seed=0,
+                                       dup_fraction=DEDUP_FRACTION, dup_span=DEDUP_SPAN)
+    name = f"dedup text 2^{DEDUP_LOG2}"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    spans, keeps, stats = {}, {}, {}
+    for mode in ("scheme", "doubling"):
+        spans[mode] = set(find_duplicate_spans(toks, device=dev, mode=mode))
+        _, keeps[mode], stats[mode] = dedup_corpus(toks, device=dev, mode=mode)
+    dt = time.perf_counter() - t0
+    counts[name] = launch_counts()
+    if any(counts[name].values()):
+        raise AssertionError(f"phase 12: {name}: a kernel launched: {counts[name]}")
+    if not (spans["scheme"] == spans["doubling"] and stats["scheme"] == stats["doubling"]
+            and np.array_equal(keeps["scheme"], keeps["doubling"])):
+        raise AssertionError(f"phase 12: {name}: modes differ: {stats}")
+    keep = keeps["scheme"]
+    intact = [(s, d, n) for s, d, n in planted
+              if np.array_equal(toks[s:s + n], toks[d:d + n])]
+    missed = [p for p in intact if keep[p[0]:p[0] + p[2]].all()
+              and keep[p[1]:p[1] + p[2]].all()]
+    if not intact or missed:
+        raise AssertionError(f"phase 12: {name}: {len(missed)} of {len(intact)} "
+                             f"planted spans kept twice")
+    log(f"phase 12: {name}: {dt:.3f} s for both modes (find + dedup each), "
+        f"{len(spans['scheme'])} spans, scheme == doubling (spans, mask, stats "
+        f"{stats['scheme']}); all {len(intact)} intact planted spans of "
+        f"{len(planted)} masked once")
+    return counts
+
+
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
@@ -2197,9 +2362,9 @@ def main(argv) -> int:
     scaling run).  ``--merge-ab PARENT PAIRS``: phases 1-2 and then
     ``merge_ab``; ``--gather-ab PARENT ROUNDS``: phases 1-2 and then
     ``gather_ab``; ``--merges READS LOG2``: phases 1-2 and then phase 10 at
-    READS reads and a 2^LOG2-token text; ``--resume READS LOG2``: phases 1-2
-    and then phase 11 at those sizes.  None of these prints a result
-    line."""
+    READS reads and a 2^LOG2-token text; ``--resume READS LOG2`` and
+    ``--build-modes READS LOG2``: phases 1-2 and then phase 11 or 12 at
+    those sizes.  None of these prints a result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2256,6 +2421,15 @@ def main(argv) -> int:
         log(f"phase 11: {time.perf_counter() - t0:.1f} s")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv[:1] == ["--build-modes"] and len(argv) == 3:
+        reads = synth_dna_reads(int(argv[1]), FULL_READ_LEN, seed=0)
+        text = synth_token_corpus(1 << int(argv[2]), 4, seed=0)[0]
+        sas, fps = scheme_references([(READS_BUILD, reads), (TEXT_BUILD, text)])
+        t0 = time.perf_counter()
+        phase_build_modes(dev, reads, text, sas, fps)
+        log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2269,7 +2443,7 @@ def main(argv) -> int:
     phase_small_builds(dev)
     phase_small_indexes(dev)
     phase_small_out_of_core(dev)
-    counts, incore_sa = phase_full_builds(dev, reads_corpus, text_tokens)
+    counts, incore_sa, scheme_fp = phase_full_builds(dev, reads_corpus, text_tokens)
     phase_profile([(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)])
     query_counts, query_report, incore_lcp, reads_index = phase_queries(
         dev, reads_corpus, text_tokens)
@@ -2294,6 +2468,9 @@ def main(argv) -> int:
         cells.append((name, corpus, (sa, lcp, r["footprint"], r["stats"]), r["wall_s"]))
     counts.update(phase_resume(*cells))
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp))
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",

@@ -16,8 +16,10 @@ from typing import Optional
 class SAConfig:
     """Configuration for suffix-array construction (see ``repro.config``).
 
-    ``mode``: only ``"scheme"`` (the paper's index-only shuffle with
-    on-demand window fetches) is ported so far.
+    ``mode``: ``"scheme"`` (the paper's index-only shuffle with on-demand
+    window fetches), ``"terasort"`` (the paper's baseline,
+    ``core/terasort.py``) or ``"doubling"`` (prefix doubling over the rank
+    store, ``core/prefix_doubling.py``); each mode is its own builder.
     """
 
     mode: str = "scheme"

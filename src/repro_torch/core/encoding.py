@@ -119,6 +119,16 @@ def all_suffix_windows(reads: torch.Tensor, k: int) -> torch.Tensor:
     return padded[:, cols]
 
 
+def suffix_words(reads: torch.Tensor, n_words: int, cfg: SAConfig) -> torch.Tensor:
+    """(R, L) reads -> (R, L+1, n_words) key words of every suffix's first
+    ``n_words * chars_per_word`` tokens, zero past the read's end: what
+    ``pack_words(all_suffix_windows(reads, n_words * cpw), cfg, n_words)``
+    gives, from shifted slices, without the (R, L+1, K) window tensor."""
+    _, l = reads.shape
+    padded = F.pad(reads, (0, n_words * cfg.resolved_chars_per_word()))
+    return _pack(lambda j: padded[:, j : j + l + 1], cfg, n_words)
+
+
 def make_records_reads(
     reads: torch.Tensor,
     lengths: torch.Tensor,

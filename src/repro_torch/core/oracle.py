@@ -1,8 +1,8 @@
 """Host-side reference suffix-array constructions (numpy test oracles).
 
-A copy of ``naive_sa_reads``, ``naive_sa_text`` and ``doubling_sa_text``
-from ``repro.core.oracle``, so the port and ``chip_smoke.py`` check results
-without importing the JAX package.
+A copy of ``naive_sa_reads``, ``naive_sa_text``, ``doubling_sa_text`` and
+``lcp_kasai`` from ``repro.core.oracle``, so the port and ``chip_smoke.py``
+check results without importing the JAX package.
 
 * :func:`naive_sa_reads` — exact paper semantics (Table I): every suffix of
   every read (including the ``$``-only suffix), sorted lexicographically with
@@ -10,6 +10,8 @@ without importing the JAX package.
 * :func:`naive_sa_text` — all suffixes of one token stream.
 * :func:`doubling_sa_text` — O(n log^2 n) Manber–Myers with np.lexsort, for
   medium-size inputs where the naive oracle is too slow.
+* :func:`lcp_kasai` — Kasai's LCP array of a token stream's SA (the dedup
+  application's LCP).
 """
 from __future__ import annotations
 
@@ -71,3 +73,23 @@ def doubling_sa_text(text: np.ndarray) -> np.ndarray:
         if k >= 2 * n:  # safety
             return np.argsort(rank, kind="stable").astype(np.int64)
 
+
+def lcp_kasai(text: np.ndarray, sa: np.ndarray) -> np.ndarray:
+    """Kasai's LCP construction: lcp[i] = LCP(suffix sa[i-1], suffix sa[i])."""
+    text = np.asarray(text)
+    n = len(text)
+    rank = np.zeros(n, np.int64)
+    rank[sa] = np.arange(n)
+    lcp = np.zeros(n, np.int64)
+    h = 0
+    for i in range(n):
+        if rank[i] > 0:
+            j = sa[rank[i] - 1]
+            while i + h < n and j + h < n and text[i + h] == text[j + h]:
+                h += 1
+            lcp[rank[i]] = h
+            if h > 0:
+                h -= 1
+        else:
+            h = 0
+    return lcp

@@ -4,16 +4,23 @@ The host-serial reference of the query path: suffix content is served by the
 :class:`~repro_torch.core.store.CorpusStore` and compared as packed key words
 (:func:`~repro_torch.core.store.pack_keys`), one pattern at a time.  The
 batched, LCP-accelerated path is ``repro_torch.serve.sa_engine``; its compare
-without the kernel is :func:`masked_cmp`.  The JAX package's deprecated
-raw-array wrappers are ROADMAP.md item 11.
+without the kernel is :func:`masked_cmp`.
+
+The JAX package's raw-array signatures (``search_text``,
+``count_occurrences``, ``find_occurrences``, ``align_reads``) remain as thin
+deprecated wrappers that build a transient in-memory store per call, with
+its ``DeprecationWarning``; they take the store's ``device`` (the card by
+default).  No other module of the port calls them (salint SAL007).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import warnings
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.config import SAConfig
 from repro_torch.core.store import CorpusStore, lex_less_rows, pack_keys
 
 
@@ -241,3 +248,73 @@ def locate_store(store: CorpusStore, sa, pattern) -> np.ndarray:
     if isinstance(occ, torch.Tensor):
         occ = occ.cpu().numpy()
     return np.sort(np.asarray(occ, np.int64))
+
+
+# ---------------------------------------------------------------------------
+# deprecated raw-array wrappers (build a transient in-memory store per call)
+# ---------------------------------------------------------------------------
+
+
+def _wrapper_store(corpus: np.ndarray, device) -> CorpusStore:
+    vocab = int(corpus.max()) if corpus.size else 1
+    return CorpusStore(np.asarray(corpus, np.int32),
+                       SAConfig(vocab_size=max(vocab, 1)), device=device)
+
+
+def _warn_deprecated(name: str, alt: str) -> None:
+    # stacklevel=3: _warn_deprecated -> wrapper -> the caller's frame
+    warnings.warn(
+        f"{name} is deprecated: it rebuilds a transient in-memory store per "
+        f"call (accounting-invisible, O(corpus) per query). Use {alt} or "
+        f"SuffixArrayIndex instead.",
+        DeprecationWarning, stacklevel=3)
+
+
+def search_text(text: np.ndarray, sa: np.ndarray, pattern,
+                device=None) -> Tuple[int, int]:
+    """Deprecated: use :func:`search_store` (or ``SuffixArrayIndex``)."""
+    _warn_deprecated("search_text", "search_store")
+    return search_store(_wrapper_store(np.asarray(text), device), sa, pattern)
+
+
+def count_occurrences(text: np.ndarray, sa: np.ndarray, pattern,
+                      device=None) -> int:
+    """Deprecated: use :func:`count_store` (or ``SuffixArrayIndex``)."""
+    _warn_deprecated("count_occurrences", "count_store")
+    lo, hi = search_store(_wrapper_store(np.asarray(text), device), sa, pattern)
+    return hi - lo
+
+
+def find_occurrences(text: np.ndarray, sa: np.ndarray, pattern,
+                     device=None) -> List[int]:
+    """Deprecated: use :func:`locate_store` (or ``SuffixArrayIndex``)."""
+    _warn_deprecated("find_occurrences", "locate_store")
+    lo, hi = search_store(_wrapper_store(np.asarray(text), device), sa, pattern)
+    return sorted(int(p) for p in np.asarray(sa)[lo:hi])
+
+
+def align_reads(
+    reads: np.ndarray,
+    sa_gidx: np.ndarray,
+    stride_bits: int,
+    pattern,
+    device=None,
+) -> List[Tuple[int, int]]:
+    """Seed-alignment lookup over a read-set SA (the paper's bioinformatics
+    application): all (read_id, offset) whose suffix starts with pattern.
+
+    Deprecated wrapper: builds a transient store; the caller's
+    ``stride_bits`` packing is translated to the store's own when they
+    differ, so pre-existing SAs keep working unchanged.
+    """
+    _warn_deprecated("align_reads", "search_store over a reads-mode store")
+    reads = np.asarray(reads, np.int32)
+    store = _wrapper_store(reads, device)
+    sa = np.asarray(sa_gidx, np.int64)
+    mask = (1 << stride_bits) - 1
+    row, off = sa >> stride_bits, sa & mask
+    sa_cmp = sa if stride_bits == store.stride_bits else (
+        (row << store.stride_bits) | off)
+    lo, hi = search_store(store, sa_cmp, pattern)
+    return sorted((int(r), int(o)) for r, o in zip(row[lo:hi], off[lo:hi],
+                                                   strict=True))

@@ -244,6 +244,68 @@ def _text_window(flat: torch.Tensor, local_pos: torch.Tensor, off: torch.Tensor,
     return padded[cols]
 
 
+def _scalar_owner(pos: torch.Tensor, active: torch.Tensor, spec: StoreSpec):
+    """Owner shard of each active in-range position; ``num_shards`` (the
+    dump bucket) for the rest."""
+    d = spec.num_shards
+    if d != 1:
+        raise NotImplementedError("the rank store across shards is ROADMAP.md item 10")
+    live = active & (pos >= 0) & (pos < d * spec.rows_per_shard)
+    return torch.where(live, torch.div(pos, spec.rows_per_shard, rounding_mode="floor"),
+                       d).to(torch.int32)
+
+
+def mget_scalar(
+    local_vals: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    spec: StoreSpec,
+    fill: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fetch one int32 per global position from the rank store
+    (``repro.core.store.mget_scalar`` at one shard): requests are bucketed
+    by owner with ``request_capacity`` slots, served there, and routed back
+    by slot; an unserved or inactive request reads ``fill``.  Returns
+    (values, dropped)."""
+    d, cap = spec.num_shards, spec.request_capacity
+    owner = _scalar_owner(pos, active, spec)
+    reqs = torch.stack([pos, torch.zeros_like(pos)], dim=1)
+    buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
+    dropped = torch.sum(active & (slot >= d * cap)).to(torch.int32)
+    req_pos = exchange(buf[:d])[..., 0].reshape(-1)
+    ok = (req_pos >= 0) & (req_pos < spec.rows_per_shard)
+    lp = req_pos.clamp(0, spec.rows_per_shard - 1).long()
+    vals = torch.where(ok, local_vals[lp], fill)
+    resp = exchange(vals.reshape(d, cap, 1)).reshape(-1)
+    resp = torch.cat([resp, resp.new_full((1,), fill)])
+    back = resp[slot.long().clamp(0, d * cap)]
+    return torch.where(active & (slot < d * cap), back, fill), dropped
+
+
+def scatter_update(
+    local_vals: torch.Tensor,
+    pos: torch.Tensor,
+    values: torch.Tensor,
+    active: torch.Tensor,
+    spec: StoreSpec,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter (pos -> value) into the rank store, the rank write-back
+    (``repro.core.store.scatter_update`` at one shard): requests past an
+    owner's ``request_capacity`` are dropped.  Returns (new_local_vals,
+    dropped)."""
+    d, cap = spec.num_shards, spec.request_capacity
+    rows = spec.rows_per_shard
+    owner = _scalar_owner(pos, active, spec)
+    reqs = torch.stack([pos, values], dim=1)
+    buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
+    dropped = torch.sum(active & (slot >= d * cap)).to(torch.int32)
+    recv = exchange(buf[:d]).reshape(d * cap, 2)
+    ok = (recv[:, 0] >= 0) & (recv[:, 0] < rows)
+    padded = torch.cat([local_vals, local_vals.new_zeros((1,))])
+    padded[recv[:, 0][ok].long()] = recv[:, 1][ok]
+    return padded[:rows], dropped
+
+
 _PLACE_VALUES = {}  # (base, digits, device) -> place values on the device
 
 

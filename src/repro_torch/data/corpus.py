@@ -5,7 +5,8 @@ Two corpus kinds mirror the two SA pipeline modes:
     A=1 C=2 G=3 T=4, 0 = $/padding — includes paired-end generation;
   * token streams with planted duplicates for the dedup application.
 
-The same seed gives the same corpus as the JAX package's synthesizers.
+The same seed gives the same corpus as the JAX package's synthesizers;
+``flatten_reads_with_separators`` and ``pack_sequences`` are copied too.
 """
 from __future__ import annotations
 
@@ -63,3 +64,34 @@ def synth_token_corpus(
         planted.append((src, dst, dup_span))
     return toks, planted
 
+
+def flatten_reads_with_separators(
+    reads: np.ndarray, lengths: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Flatten an (R, L) read set into one token stream with a ``0`` ($)
+    separator after every read.
+
+    Text-mode SA builders (prefix doubling) construct the SA of one token
+    stream; a bare ``reads.reshape(-1)`` would let suffixes run across read
+    boundaries.  The separator sorts before every real token (tokens are
+    ``>= 1``), so no pattern of real tokens can match across a boundary and
+    substring queries agree with the read-set semantics.
+    """
+    reads = np.asarray(reads, np.int32)
+    r, l = reads.shape
+    if lengths is None:
+        out = np.zeros((r, l + 1), np.int32)
+        out[:, :l] = reads
+        return out.reshape(-1)
+    parts = []
+    for i in range(r):
+        parts.append(reads[i, : int(lengths[i])])
+        parts.append(np.zeros(1, np.int32))
+    return np.concatenate(parts)
+
+
+def pack_sequences(tokens: np.ndarray, seq_len: int, batch: int) -> np.ndarray:
+    """Pack a token stream into (num_batches, batch, seq_len) LM examples."""
+    per = seq_len * batch
+    n = len(tokens) // per
+    return tokens[: n * per].reshape(n, batch, seq_len)

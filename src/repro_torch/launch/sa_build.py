@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 2000 --read-len 64
     PYTHONPATH=src python -m repro_torch.launch.sa_build --text 100000
     PYTHONPATH=src python -m repro_torch.launch.sa_build --device cpu --reads 50
+    PYTHONPATH=src python -m repro_torch.launch.sa_build --mode terasort \
+        --reads 2000                     # the TeraSort baseline
+    PYTHONPATH=src python -m repro_torch.launch.sa_build --mode doubling \
+        --text 100000                    # prefix doubling (reads: flattened)
     PYTHONPATH=src python -m repro_torch.launch.sa_build --device cpu \
         --reads 800 --read-len 48 --superblocks 3     # the out-of-core build
     PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 800 \
@@ -13,20 +17,23 @@
     PYTHONPATH=src python -m repro_torch.launch.sa_build --reads 2000 \
         --superblocks 4 --index-dir /data/ix --resume  # journaled; resumable
 
-The ``--mode scheme`` path of ``repro.launch.sa_build``, single-pass or
-out-of-core (``--superblocks``, ``--max-records-per-run``, with
+Every path of ``repro.launch.sa_build``, with the same flags, corpus
+synthesis and printout.  ``--mode scheme`` (the default) builds single-pass
+or out-of-core (``--superblocks``, ``--max-records-per-run``, with
 ``--merge-algorithm``, ``--merge-backend``, ``--merge-tile``,
 ``--pipeline-depth`` and ``--store-retries``), streaming (``--store-backend
-chunked``, ``--cache-budget``, ``--chunk-records``, ``--corpus-file``) and
+chunked``, ``--cache-budget``, ``--chunk-records``, ``--corpus-file``),
 persisted (``--index-dir``) and journaled (``--resume``, which needs
 ``--index-dir``: re-running the same command after a crash resumes the
-build from the journaled block runs), with the same flags, corpus synthesis
-and printout.  ``--corpus-file`` names a chunked corpus
-file: an existing one is built as it is, a fresh path gets the synthesized
-corpus written there first and kept.  ``--device cuda`` (the default) runs
-on ``cuda:0`` with the hand-written kernels (``use_pallas=True``);
-``--device cpu`` runs the plain PyTorch path.  ``--mode terasort|doubling``
-is not ported yet and exits with an error naming ROADMAP.md item 11.
+build from the journaled block runs).  ``--mode terasort`` (reads only) and
+``--mode doubling`` build in core; doubling flattens a reads corpus with a
+``$`` separator after every read; ``--index-dir`` needs ``--mode scheme``.
+``--corpus-file`` names a chunked corpus file: an existing one is built as
+it is (loaded whole by the in-core modes), a fresh path gets the
+synthesized corpus written there first and kept.  ``--device cuda`` (the
+default) runs on ``cuda:0`` with the hand-written kernels
+(``use_pallas=True``; the terasort and doubling modes run none);
+``--device cpu`` runs the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -97,8 +104,8 @@ def parse_args(argv=None):
                     help="journal the build in --index-dir and resume a "
                          "killed one from its journaled block runs")
     args = ap.parse_args(argv)
-    if args.mode != "scheme":
-        ap.error(f"--mode {args.mode} is not ported yet (ROADMAP.md item 11)")
+    if args.index_dir and args.mode != "scheme":
+        ap.error("--index-dir requires --mode scheme")
     if args.resume and not args.index_dir:
         ap.error("--resume requires --index-dir (the journal lives there)")
     return args
@@ -165,14 +172,30 @@ def write_corpus_file(corpus, args) -> None:
           f"{meta.num_chunks} chunks of {meta.chunk_items}")
 
 
-def run(corpus, cfg, device: str, sb=None):
-    """Build; returns (result, wall seconds), device work included."""
+def run(corpus, cfg, device: str, sb=None, mode: str = "scheme"):
+    """Build in ``mode``; returns (result, wall seconds), device work
+    included.  ``terasort`` and ``doubling`` take an in-core corpus."""
     import torch
 
-    from repro_torch.core.superblock import build_suffix_array_auto
-
     t0 = time.perf_counter()
-    res = build_suffix_array_auto(corpus, cfg=cfg, sb=sb, device=device)
+    if mode == "terasort":
+        from repro_torch.core.terasort import build_suffix_array_terasort
+
+        res = build_suffix_array_terasort(corpus, cfg=cfg, device=device)
+    elif mode == "doubling":
+        from repro_torch.core.prefix_doubling import build_suffix_array_doubling
+        from repro_torch.data.corpus import flatten_reads_with_separators
+
+        # a reads corpus keeps its read boundaries: a $ after every read, so
+        # no suffix comparison spans two reads (the corpus decides the mode:
+        # an existing --corpus-file may be text without --text)
+        flat = (corpus if corpus.ndim == 1
+                else flatten_reads_with_separators(corpus))
+        res = build_suffix_array_doubling(flat, cfg=cfg, device=device)
+    else:
+        from repro_torch.core.superblock import build_suffix_array_auto
+
+        res = build_suffix_array_auto(corpus, cfg=cfg, sb=sb, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return res, time.perf_counter() - t0
@@ -213,6 +236,14 @@ def main(argv=None):
         if corpus is not None:  # fresh path: serialize once, then stream
             write_corpus_file(corpus, args)
         source = args.corpus_file
+    if args.mode != "scheme":
+        if corpus is None:  # the in-core modes load an existing corpus file
+            from repro_torch.data.chunk_store import load_corpus
+
+            corpus = load_corpus(args.corpus_file)
+        res, dt = run(corpus, cfg, args.device, mode=args.mode)
+        report(res, dt, args.mode)
+        return res
     plan = plan_superblocks(corpus_shape_of(source), cfg, sb)
     if plan.num_superblocks > 1:
         print(f"out-of-core: {plan.total_records} records > "

@@ -29,8 +29,12 @@ SLICE_MODULES = [
     "repro_torch.core.index_io",
     "repro_torch.core.journal",
     "repro_torch.core.sanitize",
+    "repro_torch.core.terasort",
+    "repro_torch.core.prefix_doubling",
     "repro_torch.data.corpus",
     "repro_torch.data.chunk_store",
+    "repro_torch.data.dedup",
+    "repro_torch.data.loader",
     "repro_torch.kernels",
     "repro_torch.kernels.ref",
     "repro_torch.kernels.cases",
