@@ -6,8 +6,9 @@
     python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
     python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
     python3 chip_smoke.py --merges 5000 20  # phase 10 only, at these sizes
-    python3 chip_smoke.py --resume 125000 26  # phase 11 only, at these sizes
+    python3 chip_smoke.py --resume 50000 26  # phase 11 only, at these sizes
     python3 chip_smoke.py --build-modes 1000000 26  # phase 12 only, at these sizes
+    python3 chip_smoke.py --ranks 250000 24 4  # phase 13 only: reads, text, ranks
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -29,7 +30,9 @@ each of which fails loudly:
    7 (for the last two: 2^26 Map records of the text cell, D = 512, tiles
    of 1024, and for ``bitonic_sort_tiles`` also 2^16 and 2^20, with its
    CUDA launches a call), and time both, and for the last two the nearest
-   composition of PyTorch calls; ``window_gather`` also at 2^14 requests (about a
+   composition of PyTorch calls; ``bucket_hist`` also at its phase-13 shape
+   (a rank's ``RANKS_KEYS`` records, D = 4: its JSON entry, with D = 512
+   under ``d512``); ``window_gather`` also at 2^14 requests (about a
    device-merge tile's); ``merge_path_ranks`` also on full synthetic tiles (C = 4 x 4096,
    W = 4 and 23), random and as 4 sorted runs, timed beside
    ``torch.unique``'s inverse index (the same ranks on unique rows);
@@ -133,14 +136,32 @@ each of which fails loudly:
    one copy of every intact planted span masked.  The TeraSort and text
    doubling builds are profiled once more, as phase 6 profiles.  Nothing dropped or
    unresolved, and no kernel launched: neither mode of ``src/repro`` calls
-   one.
+   one;
+13. world size 4 on the one card: ``RANKS_D`` processes, one gloo rank each
+   (NCCL takes one rank a card), over ``synth_dna_reads(RANKS_READS, 200,
+   seed=0)`` and ``synth_token_corpus(2**RANKS_TEXT_LOG2, 4, seed=0)``: the
+   scheme with the kernels and plain on both, TeraSort on the reads,
+   doubling on the text, and ``refine_indices`` over ``RANKS_REFINE``
+   sampled suffixes of the reads.  Every build's SA must equal a one-rank
+   kernel build of the same corpus made in the parent before the ranks
+   start (the refinement: its subset in SA order), every rank's result
+   rank 0's, kernels == plain (SA, Footprint, stats), and nothing dropped
+   or unresolved.  ``bucket_hist`` (the partition) must launch in every
+   kernel build, ``prefix_pack`` in the text scheme build and
+   ``window_gather`` in the reads scheme build, nothing on the plain path.
+   Each build's wall (the largest rank's, barrier to barrier), suffixes/s,
+   each rank's peak device memory and its bytes through the exchange.  Then
+   ``torchrun --nproc-per-node 4 -m repro_torch.launch.sa_build`` at
+   ``RANKS_LAUNCH_READS`` reads on the card: exit 0, rank 0 alone printing
+   4 ``per_device_counts`` with nothing dropped or unresolved.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
 phases 1-2 and then phase 10 alone at those sizes, ``--resume READS LOG2``
 phase 11 alone (against unjournaled builds it makes itself; no result line),
 ``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
-makes itself; no result line).
+makes itself; no result line), ``--ranks READS LOG2 D`` phase 13 alone at D
+ranks (no result line).
 Without CUDA, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
@@ -168,17 +189,14 @@ PAIR_SAMPLES = 1 << 20
 READS_BUILD, TEXT_BUILD = "reads 1M x 200", "text 2^26"
 READS_QUERY, TEXT_QUERY = "reads query", "text query"
 # phase 8's reads cell: the corpus of phase 5 cut to OOC_READS reads (same
-# read length, alphabet and seed) so three builds fit the time limit (the
-# wall that forced the cut is in PERF.md); its profiled build is smaller
-# still, since the profiler's bookkeeping grows with the merge's op count
-OOC_READS = 125_000
+# read length, alphabet and seed) so its three builds and phase 11's six fit
+# the time limit on a slow host (the walls that forced the cuts are in
+# PERF.md); its profiled build is smaller still, since the profiler's
+# bookkeeping grows with the merge's op count
+OOC_READS = 50_000
 OOC_PROFILE_READS = 5_000
 READS_OOC = f"reads {OOC_READS // 1000}K x 200 out-of-core"
 TEXT_OOC = "text 2^26 out-of-core"
-# the full-size run whose main path each kernel lies on
-KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
-                "pattern_search": READS_QUERY,
-                "pattern_cmp": "reads reopened chunked", "merge_path": READS_OOC}
 # phase 8: superblocks of the out-of-core cells; full-size merge tiles of
 # phase 3 (C = 4 runs x 4096 heads)
 OOC_SUPERBLOCKS = 4
@@ -193,20 +211,43 @@ HIST_D, SORT_TILE = 512, 1024
 SORT_TILES = (SORT_TILE, 1 << 16, 1 << 20)
 # phase 9: the chunked store's cache for the reopened reads index (its
 # 0.8 GB corpus fits: a smaller cache reloads most chunks every search
-# round), and the streaming build's reads, cut from phase 8's OOC_READS
-# (the wall that forced the cut is in PERF.md)
+# round), and the streaming build's reads, cut from phase 8's reads (the
+# walls that forced the cuts are in PERF.md)
 OPEN_CACHE_BYTES = 1 << 30
-STREAM_READS = 5_000
+STREAM_READS = 2_000
 # phase 10: the corpora of the k-way and re-rank merges, cut from 5 000 reads
 # and a 2^20 text (the k-way heap and its cursor's singleton fetches, and the
 # re-rank's splitter scans, are host work: the walls that forced the cuts are
 # in PERF.md), and the reads of their streaming runs
-MERGE_READS = 500
-MERGE_TEXT_LOG2 = 18
+MERGE_READS = 250
+MERGE_TEXT_LOG2 = 17
 STREAM_MERGE_READS = 500
 # phase 12: the dedup cell, a 2^20-token text with planted duplicate spans
 # (without them a random 4-token text has no repeat of 32 tokens)
 DEDUP_LOG2, DEDUP_FRACTION, DEDUP_SPAN = 20, 0.05, 64
+# phase 13: world size 4 on the one card, gloo ranks (NCCL takes one rank a
+# card).  The corpora are cut from phase 5's 1 M reads and 2^26 text: gloo
+# stages every exchange through host memory (PERF.md section 4).  A rank's
+# partition of the reads build is RANKS_KEYS Map records (phase 3 times
+# bucket_hist there); refine_indices ranks RANKS_REFINE sampled suffixes of
+# the reads; the launcher runs under torchrun at RANKS_LAUNCH_READS reads
+RANKS_D, RANKS_READS, RANKS_TEXT_LOG2 = 4, 250_000, 24
+RANKS_KEYS = RANKS_READS // RANKS_D * (FULL_READ_LEN + 1)
+RANKS_REFINE = 1 << 16
+RANKS_LAUNCH_READS = 20_000
+# (build, corpus, mode, kernels) of phase 13, each on every rank
+RANKS_BUILDS = (("reads scheme kernels", "reads", "scheme", True),
+                ("reads scheme plain", "reads", "scheme", False),
+                ("text scheme kernels", "text", "scheme", True),
+                ("text scheme plain", "text", "scheme", False),
+                ("reads terasort kernels", "reads", "terasort", True),
+                ("text doubling kernels", "text", "doubling", True),
+                ("reads refine kernels", "reads", "refine", True))
+RANKS_READS_BUILD = f"{RANKS_D} ranks reads {RANKS_READS // 1000}K x 200 scheme kernels"
+# the full-size run whose main path each kernel lies on
+KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
+                "bucket_hist": RANKS_READS_BUILD, "pattern_search": READS_QUERY,
+                "pattern_cmp": "reads reopened chunked", "merge_path": READS_OOC}
 
 
 def log(msg: str) -> None:
@@ -436,7 +477,7 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                 f"{m['device_ms']:.4f} ms a call), plain {m['plain_ms']:.4f} ms, "
                 f"library {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
                 f"({m['bound_by']})")
-    for name, o in out.items():
+    for name, o in [*out.items(), ("bucket_hist", out["bucket_hist"]["d512"])]:
         lib = (f", library {o['library_ms']:.4f} ms ({o['library']})"
                if "library" in o else "")
         log(f"phase 3: {name} full size ({o['shape']}): kernel {o['ms']:.4f} ms, "
@@ -541,48 +582,20 @@ def sort_kernels_full_size(records):
     """``bucket_hist`` and ``bitonic_sort_tiles`` on 2^26 Map records of
     the text cell: D = 512 with 511 sorted sampled splitters, and tiles of
     1024, 2^16 and 2^20 with each record's index as its value (the kernel's
-    entry holds tile 1024 and, under ``tiles``, the others).  Neither kernel
-    lies on a path of ``src/repro``; ``library_ms`` times the nearest
-    composition of PyTorch calls (one call computes neither function)."""
+    entry holds tile 1024 and, under ``tiles``, the others).  Then
+    ``bucket_hist`` at its main path's shape (phase 13): D = 4 over the
+    first ``RANKS_KEYS`` records, a rank's partition of the 250 K-read
+    build; its entry holds that, and D = 512 under ``d512``.
+    ``bitonic_sort_tiles`` lies on no path of ``src/repro``; ``library_ms``
+    times the nearest composition of PyTorch calls (one call computes
+    neither function)."""
     import torch
-
-    from repro_torch.kernels import bucket_hist as bh_mod
-    from repro_torch.kernels import ref
 
     dev = records.device
     n = records.shape[0]
     kh, kl = records[:, 0].contiguous(), records[:, 1].contiguous()
-    gen = torch.Generator().manual_seed(17)
-    pick = torch.randperm(n, generator=gen)[: HIST_D - 1].to(dev)
-    order = torch.argsort(ref._fold(kh[pick], kl[pick]))
-    sh, sl = kh[pick][order].contiguous(), kl[pick][order].contiguous()
-    out = {}
-
-    got = bh_mod.bucket_hist(kh, kl, sh, sl)
-    want = ref.bucket_hist_ref(kh, kl, sh, sl)
-    check_bucket_hist("bucket_hist full size", got, want)
-    splits = ref._fold(sh, sl)
-
-    def hist_library():
-        bucket = torch.searchsorted(splits, ref._fold(kh, kl))
-        return bucket, torch.bincount(bucket, minlength=HIST_D)
-
-    lib = hist_library()
-    check_equal("bucket_hist library composition", lib[1].to(torch.int32), want[1])
-    # bytes: both key words read, the splitters read, buckets and histogram
-    # written; operations: the log2(D) compares a key a search needs
-    bound_ms, bound_by = byte_or_op_bound(
-        8 * n + 8 * (HIST_D - 1) + 4 * n + 4 * HIST_D,
-        n * (HIST_D - 1).bit_length())
-    out["bucket_hist"] = dict(
-        max_abs_err=max(max_abs_err(g, w) for g, w in zip(got, want, strict=True)),
-        ms=time_ms(lambda: bh_mod.bucket_hist(kh, kl, sh, sl), 20),
-        plain_ms=time_ms(lambda: ref.bucket_hist_ref(kh, kl, sh, sl), 3),
-        library_ms=time_ms(hist_library, 20),
-        library="torch.searchsorted over int64-folded splitters + torch.bincount",
-        bound_ms=bound_ms, bound_by=bound_by,
-        shape=f"N={n} Map records, D={HIST_D}")
-    del got, want, lib
+    out = {"bucket_hist": dict(hist_timing(kh[:RANKS_KEYS], kl[:RANKS_KEYS], RANKS_D),
+                               d512=hist_timing(kh, kl, HIST_D))}
 
     val = torch.arange(n, dtype=torch.int32, device=dev)
     tiles = {}
@@ -595,6 +608,44 @@ def sort_kernels_full_size(records):
         str(t): {k: v for k, v in o.items() if k.endswith(("ms", "launches"))}
         for t, o in tiles.items() if t != SORT_TILE})
     return out
+
+
+def hist_timing(kh, kl, d):
+    """``bucket_hist`` over keys (kh, kl) and d - 1 sorted splitters sampled
+    from them, held to its plain version and timed beside it and the
+    nearest library composition."""
+    import torch
+
+    from repro_torch.kernels import bucket_hist as bh_mod
+    from repro_torch.kernels import ref
+
+    n = kh.shape[0]
+    gen = torch.Generator().manual_seed(17)
+    pick = torch.randperm(n, generator=gen)[: d - 1].to(kh.device)
+    order = torch.argsort(ref._fold(kh[pick], kl[pick]))
+    sh, sl = kh[pick][order].contiguous(), kl[pick][order].contiguous()
+    got = bh_mod.bucket_hist(kh, kl, sh, sl)
+    want = ref.bucket_hist_ref(kh, kl, sh, sl)
+    check_bucket_hist(f"bucket_hist N={n} D={d}", got, want)
+    splits = ref._fold(sh, sl)
+
+    def hist_library():
+        bucket = torch.searchsorted(splits, ref._fold(kh, kl))
+        return bucket, torch.bincount(bucket, minlength=d)
+
+    lib = hist_library()
+    check_equal("bucket_hist library composition", lib[1].to(torch.int32), want[1])
+    # bytes: both key words read, the splitters read, buckets and histogram
+    # written; operations: the log2(D) compares a key a search needs
+    bound_ms, bound_by = byte_or_op_bound(8 * n + 8 * (d - 1) + 4 * n + 4 * d,
+                                          n * (d - 1).bit_length())
+    return dict(
+        max_abs_err=max(max_abs_err(g, w) for g, w in zip(got, want, strict=True)),
+        ms=time_ms(lambda: bh_mod.bucket_hist(kh, kl, sh, sl), 20),
+        plain_ms=time_ms(lambda: ref.bucket_hist_ref(kh, kl, sh, sl), 3),
+        library_ms=time_ms(hist_library, 20),
+        library="torch.searchsorted over int64-folded splitters + torch.bincount",
+        bound_ms=bound_ms, bound_by=bound_by, shape=f"N={n} Map records, D={d}")
 
 
 def sort_timing(kh, kl, val, tile):
@@ -2214,6 +2265,203 @@ def phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp):
     return counts
 
 
+def ranks_worker(rank, d, work):
+    """One gloo rank of phase 13 (a ``torch.multiprocessing`` spawn target):
+    every build of ``RANKS_BUILDS`` on the corpora in ``work``, each between
+    two barriers, with its launches, peak memory and collective traffic
+    reset just before it and read just after.  Writes ``rank{rank}.pkl``
+    (and rank 0 each build's suffix array as ``{build}.npy``)."""
+    import dataclasses
+    import hashlib
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.core.pipeline import refine_indices
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sa_build
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(work, 'rdzv')}",
+                            rank=rank, world_size=d)
+    try:
+        corpora = {c: np.load(os.path.join(work, f"{c}.npy")) for c in ("reads", "text")}
+        gidx = np.load(os.path.join(work, "gidx.npy"))
+        out = {}
+        for name, corpus, mode, kernels in RANKS_BUILDS:
+            cfg = sa_build.make_config("base", "cuda", use_pallas=kernels)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            distributed.reset_traffic()
+            dist.barrier()
+            t0 = time.perf_counter()
+            if mode == "refine":
+                sa = refine_indices(corpora[corpus], gidx, cfg=cfg, device="cuda")
+                fp = stats = None
+            else:
+                res, _ = sa_build.run(corpora[corpus], cfg, "cuda", mode=mode)
+                sa, fp, stats = (res.suffix_array, dataclasses.asdict(res.footprint),
+                                 res.stats)
+                del res
+            torch.cuda.synchronize()
+            dist.barrier()
+            out[name] = dict(
+                wall=time.perf_counter() - t0, launches=launch_counts(),
+                peak=torch.cuda.max_memory_allocated(), traffic=dict(distributed.TRAFFIC),
+                footprint=fp, stats=stats, n=int(sa.shape[0]),
+                digest=hashlib.sha256(np.ascontiguousarray(sa).tobytes()).hexdigest())
+            if rank == 0:
+                np.save(os.path.join(work, f"{name}.npy"), sa)
+            del sa
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(d, work, timeout=900):
+    """Run ``ranks_worker`` on d processes; every one is stopped on the way
+    out.  Returns each rank's results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(ranks_worker, args=(d, work), nprocs=d, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 13: {d} ranks not done in {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = []
+    for rank in range(d):
+        with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def launcher_ranks(d, reads):
+    """``repro_torch.launch.sa_build`` under ``torchrun`` with d ranks on the
+    card: it must exit 0, and rank 0 alone print d ``per_device_counts``
+    with nothing dropped or unresolved."""
+    import ast
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(d), "-m", "repro_torch.launch.sa_build",
+         "--reads", str(reads), "--read-len", str(FULL_READ_LEN)],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 13: torchrun exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    stats = [ast.literal_eval(x[len("stats: "):]) for x in lines if x.startswith("stats: ")]
+    choice = [x for x in proc.stderr.splitlines() if x.startswith("process group:")]
+    if (len(stats) != 1 or len(stats[0]["per_device_counts"]) != d
+            or stats[0]["dropped"] or stats[0]["unresolved"]):
+        raise AssertionError(f"phase 13: torchrun printed {lines}")
+    log(f"phase 13: torchrun --nproc-per-node {d} repro_torch.launch.sa_build "
+        f"--reads {reads} --read-len {FULL_READ_LEN}: exit 0 in {dt:.1f} s; "
+        f"{choice}; {lines[0]}; stats {stats[0]}")
+
+
+def phase_ranks(dev, reads=RANKS_READS, text_log2=RANKS_TEXT_LOG2, d=RANKS_D):
+    """Phase 13 (see the module docstring).  Returns the launches of each
+    build, summed over the ranks, by build."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.corpus import synth_dna_reads, synth_token_corpus
+    from repro_torch.launch import sa_build
+
+    corpora = {"reads": synth_dna_reads(reads, FULL_READ_LEN, seed=0),
+               "text": synth_token_corpus(1 << text_log2, 4, seed=0)[0]}
+    label = {"reads": f"reads {count_name(reads)} x {FULL_READ_LEN}",
+             "text": f"text 2^{text_log2}"}
+    refs = {}
+    for c, corpus in corpora.items():
+        res, dt = sa_build.run(corpus, sa_build.make_config("base", "cuda"), "cuda")
+        refs[c] = res.suffix_array
+        log(f"phase 13: {label[c]} one rank (the reference, kernels): {dt:.3f} s wall, "
+            f"{res.stats['num_suffixes'] / dt:.0f} suffixes/s")
+        del res
+    rng = np.random.default_rng(13)
+    gidx = rng.choice(refs["reads"], size=RANKS_REFINE, replace=False)
+    want = {"reads": refs["reads"], "text": refs["text"],
+            "refine": refs["reads"][np.isin(refs["reads"], gidx)]}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 13: the parent holds {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"on the card before the ranks start")
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as work:
+        for c, corpus in corpora.items():
+            np.save(os.path.join(work, f"{c}.npy"), corpus)
+        np.save(os.path.join(work, "gidx.npy"), gidx)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(d, work)
+        log(f"phase 13: {d} gloo ranks on one card: spawn to exit {time.perf_counter() - t0:.1f} s")
+        sas = {name: np.load(os.path.join(work, f"{name}.npy")) for name, *_ in RANKS_BUILDS}
+    for name, corpus, mode, kernels in RANKS_BUILDS:
+        r = [res[name] for res in ranks]
+        for i, x in enumerate(r[1:], 1):
+            if (x["digest"], x["footprint"], x["stats"]) != (
+                    r[0]["digest"], r[0]["footprint"], r[0]["stats"]):
+                raise AssertionError(f"phase 13: {name}: rank {i} != rank 0")
+        if not np.array_equal(sas[name], want["refine" if mode == "refine" else corpus]):
+            raise AssertionError(f"phase 13: {name}: SA != the one-rank build's")
+        stats = r[0]["stats"] or {}
+        if stats.get("dropped") or stats.get("unresolved"):
+            raise AssertionError(f"phase 13: {name}: {stats}")
+        launched = {k: sum(x["launches"][k] for x in r) for k in r[0]["launches"]}
+        full = f"{d} ranks {label[corpus]} {name.split(' ', 1)[1]}"
+        counts[full] = launched
+        if kernels and not launched["bucket_hist"]:
+            raise AssertionError(f"phase 13: {name}: bucket_hist not launched: {launched}")
+        if not kernels and any(launched.values()):
+            raise AssertionError(f"phase 13: {name}: plain path launched {launched}")
+        wall = max(x["wall"] for x in r)
+        n = r[0]["n"]
+        walls = ", ".join(f"{x:.3f}" for x in (y["wall"] for y in r))
+        log(f"phase 13: {full}: {wall:.3f} s wall (largest rank; {walls}), "
+            f"{n / wall:.0f} suffixes/s, "
+            f"peak GiB {[round(x['peak'] / 2**30, 2) for x in r]} "
+            f"(sum {sum(x['peak'] for x in r) / 2**30:.2f}), exchange bytes a rank "
+            f"{[x['traffic']['exchange_bytes'] for x in r]} in "
+            f"{r[0]['traffic']['exchanges']} exchanges, gathered bytes a rank "
+            f"{[x['traffic']['gather_bytes'] for x in r]}, launches {launched}")
+        if stats:
+            log(f"phase 13: {full}: stats {stats}")
+    for c, kernel in (("reads", "window_gather"), ("text", "prefix_pack")):
+        name = f"{c} scheme"
+        a, b = ranks[0][f"{name} kernels"], ranks[0][f"{name} plain"]
+        if (a["digest"], a["footprint"], a["stats"]) != (b["digest"], b["footprint"],
+                                                           b["stats"]):
+            raise AssertionError(f"phase 13: {name}: kernels != plain")
+        if not counts[f"{d} ranks {label[c]} scheme kernels"][kernel]:
+            raise AssertionError(f"phase 13: {name} kernels: {kernel} not launched")
+    log(f"phase 13: every build equals its one-rank build, every rank rank 0's, kernels "
+        f"== plain (SA, Footprint, stats), nothing dropped or unresolved")
+    launcher_ranks(d, RANKS_LAUNCH_READS)
+    return counts
+
+
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
@@ -2364,7 +2612,8 @@ def main(argv) -> int:
     ``gather_ab``; ``--merges READS LOG2``: phases 1-2 and then phase 10 at
     READS reads and a 2^LOG2-token text; ``--resume READS LOG2`` and
     ``--build-modes READS LOG2``: phases 1-2 and then phase 11 or 12 at
-    those sizes.  None of these prints a result line."""
+    those sizes; ``--ranks READS LOG2 D``: phases 1-2 and then phase 13 at
+    those sizes on D ranks.  None of these prints a result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2430,6 +2679,12 @@ def main(argv) -> int:
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv[:1] == ["--ranks"] and len(argv) == 4:
+        t0 = time.perf_counter()
+        phase_ranks(dev, int(argv[1]), int(argv[2]), int(argv[3]))
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2471,6 +2726,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     counts.update(phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp))
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    del reads_corpus, text_tokens, incore_sa, incore_lcp, ooc_ref, cells
+    t0 = time.perf_counter()
+    counts.update(phase_ranks(dev))
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",
@@ -2488,10 +2747,10 @@ def main(argv) -> int:
         "bitonic_sort": ("src/repro_torch/kernels/csrc/bitonic_sort.cu",
                          "src/repro/kernels/bitonic_sort.py:74"),
     }
-    # no path of src/repro runs these two: their launches are the sum over
-    # every main-path run, which must be 0
-    no_path = {k: "no path of src/repro runs it; held to its plain version in "
-                  "phase 3 only" for k in ("bucket_hist", "bitonic_sort")}
+    # no path of src/repro runs it: its launches are the sum over every
+    # main-path run, which must be 0
+    no_path = {"bitonic_sort": "no path of src/repro runs it; held to its plain "
+                               "version in phase 3 only"}
     launches = {k: (sum(c[k] for c in counts.values()) if k in no_path
                     else counts[KERNEL_BUILD[k]][k]) for k in sources}
     for k in sources:
@@ -2515,7 +2774,7 @@ def main(argv) -> int:
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": kern[k].get("library_ms"),
          **({"library": kern[k]["library"]} if "library" in kern[k] else {}),
-         **{x: kern[k][x] for x in ("cuda_launches", "tiles") if x in kern[k]},
+         **{x: kern[k][x] for x in ("cuda_launches", "tiles", "d512") if x in kern[k]},
          **({"note": no_path[k]} if k in no_path else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,72 @@
-"""Shuffle helpers of the SA pipeline at world size 1.
+"""Shuffle helpers and collectives of the SA pipelines.
 
-The port of ``repro.core.distributed`` for one shard: the capacity-padded
-bucket scatter keeps its overflow drops, ``slot`` routing and dump bucket;
-the all_to_all ``exchange`` is the identity and ``sample_splitters`` finds
-no splitters.  World size > 1 is ROADMAP item 10.
+The port of ``repro.core.distributed``.  One process is one rank, the
+counterpart of one device of the JAX package's 1-D ``"sa"`` mesh, and
+:class:`Ranks` is the counterpart of its axis name: the process group, this
+process's rank in it and its size.  At one rank (:data:`SINGLE`, the handle
+when no process group is initialized) no collective runs: ``exchange`` is
+the identity and ``sample_splitters`` finds no splitters.  At D ranks the
+collectives go over ``torch.distributed``, each in one function here:
+``exchange`` (``lax.all_to_all``), ``all_gather`` (``lax.all_gather``),
+``psum`` and ``pmax``.  They take tensors where they lie: over NCCL on the
+ranks' cards, over gloo on the CPU or on the card, whose tensors gloo stages
+through host memory itself (one card's ranks share it over gloo: NCCL takes
+one rank a card).  The capacity-padded bucket scatter keeps its overflow
+drops, ``slot`` routing and dump bucket.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
+
+# Bytes this process has sent the other ranks through ``exchange`` and
+# ``all_gather`` since the last :func:`reset_traffic`, and its exchanges.
+TRAFFIC = {"exchange_bytes": 0, "exchanges": 0, "gather_bytes": 0}
+
+
+def reset_traffic() -> None:
+    for key in TRAFFIC:
+        TRAFFIC[key] = 0
+
+
+@dataclass(frozen=True)
+class Ranks:
+    """The ranks a build runs on: the counterpart of the JAX package's mesh
+    axis.  ``group`` is a ``torch.distributed`` process group (``None``: the
+    default group), ``rank`` this process's rank in it, ``size`` its size."""
+
+    group: Any = None
+    rank: int = 0
+    size: int = 1
+
+
+SINGLE = Ranks()
+
+
+def world(group: Optional[Any] = None) -> Ranks:
+    """The ranks of ``group``, or of the initialized world when ``group`` is
+    ``None`` (as the JAX package's ``mesh=None`` takes every device); the
+    single-rank handle when no process group is initialized."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        if group is not None:
+            raise ValueError("a process group was given, but torch.distributed "
+                             "is not initialized")
+        return SINGLE
+    return Ranks(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+def refuse_ranks(what: str) -> None:
+    """Raise ``NotImplementedError`` when ``what`` is asked for on more than
+    one rank of the initialized world: the paths that wait for ROADMAP.md
+    item 10b."""
+    ranks = world()
+    if ranks.size > 1:
+        raise NotImplementedError(
+            f"{what} at world size {ranks.size} (> 1) is ROADMAP.md item 10b")
 
 
 def bucket_scatter(
@@ -45,12 +102,58 @@ def bucket_scatter(
             slot, dropped)
 
 
-def exchange(buf: torch.Tensor) -> torch.Tensor:
-    """all_to_all of a (D, capacity, W) buffer; the identity at D = 1."""
-    if buf.shape[0] != 1:
-        raise NotImplementedError(
-            "exchange across shards is ROADMAP.md item 10")
-    return buf
+def exchange(buf: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """all_to_all of a (D, capacity, W) buffer: ``out[j]`` is what rank j
+    sent this rank (``lax.all_to_all(..., tiled=True)``'s layout); the
+    identity at one rank.  One ``all_to_all_single`` with equal splits."""
+    if buf.shape[0] != ranks.size:
+        raise ValueError(f"exchange: a buffer of {buf.shape[0]} buckets over "
+                         f"{ranks.size} rank(s)")
+    if ranks.size == 1:
+        return buf
+    import torch.distributed as dist
+
+    send = buf.contiguous()
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out.view(-1), send.view(-1), group=ranks.group)
+    TRAFFIC["exchange_bytes"] += (send.numel() * send.element_size()
+                                  * (ranks.size - 1) // ranks.size)
+    TRAFFIC["exchanges"] += 1
+    return out
+
+
+def all_gather(x: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes), stacked in rank order:
+    ``lax.all_gather``; ``x[None]`` at one rank."""
+    if ranks.size == 1:
+        return x[None]
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty((ranks.size, *x.shape), dtype=x.dtype, device=x.device)
+    dist.all_gather(list(out.unbind(0)), x, group=ranks.group)
+    TRAFFIC["gather_bytes"] += x.numel() * x.element_size() * (ranks.size - 1)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, ranks: Ranks, op: str) -> torch.Tensor:
+    if ranks.size == 1:
+        return x
+    import torch.distributed as dist
+
+    out = x.clone()
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=ranks.group)
+    return out
+
+
+def psum(x: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """``lax.psum``: the sum of ``x`` over the ranks (``x`` at one rank)."""
+    return _all_reduce(x, ranks, "SUM")
+
+
+def pmax(x: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """The largest ``x`` over the ranks (``x`` at one rank)."""
+    return _all_reduce(x, ranks, "MAX")
 
 
 def lex_bucket(
@@ -67,19 +170,59 @@ def lex_bucket(
     return torch.sum(gt, dim=1).to(torch.int32)
 
 
+def partition(
+    key_hi: torch.Tensor,
+    key_lo: torch.Tensor,
+    split_hi: torch.Tensor,
+    split_lo: torch.Tensor,
+    cfg,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The range partition: :func:`lex_bucket`, and the dump bucket
+    ``len(split_hi) + 1`` (= D) where ``valid`` is False.
+
+    Under ``cfg.use_pallas`` with splitters (D > 1) the buckets come from
+    the ``bucket_hist`` kernel (its dispatcher: the plain version on a CPU
+    tensor); its histogram counts every key, so callers count the masked
+    buckets themselves.  At one rank there is no splitter and nothing
+    launches.
+    """
+    if cfg.use_pallas and split_hi.numel():
+        from repro_torch.kernels import ops as kops  # the TeraSort partition
+
+        bucket, _ = kops.bucket_hist(key_hi.contiguous(), key_lo.contiguous(),
+                                     split_hi.contiguous(), split_lo.contiguous())
+    else:
+        bucket = lex_bucket(key_hi, key_lo, split_hi, split_lo)
+    if valid is None:
+        return bucket
+    return torch.where(valid, bucket, split_hi.shape[0] + 1).to(torch.int32)
+
+
 def sample_splitters(
     key_hi: torch.Tensor,
     key_lo: torch.Tensor,
     num_samples: int,
-    num_shards: int = 1,
+    ranks: Ranks = SINGLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """TeraSort-style splitter estimation: D-1 quantiles of a systematic
-    sample of every shard's keys.  At D = 1 there are none: the splitters
-    are empty and every key lands in bucket 0."""
-    if num_shards != 1:
-        raise NotImplementedError(
-            "splitters across shards are ROADMAP.md item 10")
-    return key_hi[:0], key_lo[:0]
+    """TeraSort-style splitter estimation: a systematic sample of every
+    rank's keys, all-gathered and sorted, and its D-1 quantiles, the same on
+    every rank.  At one rank there are none: the splitters are empty and
+    every key lands in bucket 0.
+
+    The sample positions are computed in int64; the JAX package computes
+    ``arange(num_samples) * n`` in int32, which wraps once it passes 2^31.
+    """
+    d = ranks.size
+    if d == 1:
+        return key_hi[:0], key_lo[:0]
+    n = key_hi.shape[0]
+    idx = torch.arange(num_samples, device=key_hi.device) * n // num_samples
+    idx = idx.clamp(0, n - 1)
+    samples = all_gather(torch.stack([key_hi[idx], key_lo[idx]]), ranks)
+    s_hi, s_lo = lex_sort([samples[:, 0].reshape(-1), samples[:, 1].reshape(-1)])
+    q = torch.arange(1, d, device=key_hi.device) * num_samples  # total // d
+    return s_hi[q], s_lo[q]
 
 
 def run_starts(eq_prev: torch.Tensor) -> torch.Tensor:

@@ -82,6 +82,9 @@ class BuildJournal:
     VERSION = 1
 
     def __init__(self, path: str):
+        from repro_torch.core.distributed import refuse_ranks
+
+        refuse_ranks("the build journal")
         self.path = path
         self._f = None
         self._unsynced = 0

@@ -1,21 +1,28 @@
-"""Suffix-array construction — the paper's scheme (§IV) at one shard.
+"""Suffix-array construction — the paper's scheme (§IV).
 
-The port of ``repro.core.pipeline.build_suffix_array``.  Dataflow:
+The port of ``repro.core.pipeline.build_suffix_array``.  Dataflow on each
+rank (one process a rank, each holding one shard of the corpus; one rank
+when no process group is initialized):
 
-  Map      : every suffix -> 16-byte record (prefix key + packed index)
+  Map      : every local suffix -> 16-byte record (prefix key + packed index)
              [core.encoding / the prefix_pack kernel]
-  Sample   : splitter estimation (no splitters at one shard)
-  Shuffle  : capacity-padded bucket scatter; the exchange is the identity
+  Sample   : splitter estimation across the ranks (none at one rank)
+  Partition: the splitters below each key [the bucket_hist kernel]
+  Shuffle  : capacity-padded bucket scatter and one all_to_all of records —
+             indexes move, suffixes stay put (the identity at one rank)
   Reduce   : lexicographic sort by (key, index); tie groups refine by
              fetching the next K-token window from the store (mgetsuffix,
-             the window_gather kernel) in a host loop until no tie is left
-  Output   : the sorted index run == the suffix array
+             the window_gather kernel) in a host loop until no rank has a
+             tie left
+  Output   : the ranks' sorted index runs, all-gathered == the suffix array
 
 :class:`DeviceRefiner` is the same reduce loop over an arbitrary set of
 suffix indexes: the out-of-core merge's ``merge_backend="device"``.
 
-Translations from the JAX package: ``lax.while_loop`` is a host loop whose
-condition reads one device scalar per round; ``lax.sort(num_keys=k)`` is
+Translations from the JAX package: ``shard_map`` over the ``"sa"`` axis is
+one process a rank (:class:`repro_torch.core.distributed.Ranks`);
+``lax.while_loop`` is a host loop whose condition reads one device scalar
+per round (summed over the ranks); ``lax.sort(num_keys=k)`` is
 :func:`repro_torch.core.distributed.lex_sort`; ``segment_min`` is
 ``scatter_reduce("amin")``.  Counters are int64, where the JAX package
 accumulates them in int32.
@@ -30,12 +37,17 @@ import torch
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
 from repro_torch.core.distributed import (
+    Ranks,
+    all_gather,
     bucket_scatter,
     exchange,
-    lex_bucket,
     lex_sort,
+    partition,
+    pmax,
+    psum,
     run_starts,
     sample_splitters,
+    world,
 )
 from repro_torch.core.store import StoreSpec, mget_window, serve_windows, token_bytes
 from repro_torch.core.types import (
@@ -88,9 +100,10 @@ def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,
 
     Still-tied groups fetch their next K-token window from the store and
     re-sort within the group; a group consumes a window only when every
-    active member was served.  Returns ``(g, ih, il, exhausted, depth,
-    stats)`` as the JAX loop's final carry; stats are int64 device scalars
-    except ``iters``.
+    active member was served.  The loop runs while any rank has an active
+    suffix: a rank with none still joins every round's two exchanges.
+    Returns ``(g, ih, il, exhausted, depth, stats)`` as the JAX loop's final
+    carry; stats are int64 device scalars except ``iters``.
     """
     n = ih.shape[0]
     k = cfg.prefix_len
@@ -100,9 +113,10 @@ def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,
     stats = dict(iters=0, fetch_requests=zero, fetch_request_bytes=zero,
                  fetch_response_bytes=zero, retries=zero, max_depth=zero + 1)
 
+    ranks = spec.ranks
     while stats["iters"] < hard_cap:
         active = _tied(g) & ~exhausted & (ih != KEY_SENTINEL)
-        if not bool(active.any()):
+        if not bool(psum(active.sum(), ranks)):
             break
         validr = ih != KEY_SENTINEL
         if analytic:
@@ -117,8 +131,14 @@ def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,
         else:
             row, off0 = unpack_index(ih, il, stride_bits)
             off = off0 + depth * k
-        words, exh_new, ok, fs = serve_windows(store_local, row, off, active,
-                                               spec, cfg)
+        if ranks.size == 1:
+            words, exh_new, ok, fs = serve_windows(store_local, row, off, active,
+                                                   spec, cfg)
+        else:
+            words, exh_new, ok, fs = mget_window(store_local, row, off, active,
+                                                 spec, cfg)
+            if not cfg.server_pack:
+                words = encoding.pack_words(words, cfg)
         del row, off
         # group-synchronous advance: a group consumes its window only if every
         # active member was served; otherwise the whole group retries.
@@ -152,11 +172,14 @@ def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,
 
 
 def _map_phase(reads_l, lengths_l, halo_l, *, cfg, rows_per_shard, stride_bits,
-               text_mode, text_len):
-    """Map + sample + bucket.  Returns (records, valid, bucket)."""
+               text_mode, text_len, ranks: Ranks):
+    """Map + sample + partition on this rank's shard.  Returns (records,
+    valid, bucket); invalid records are in the dump bucket D."""
+    base = ranks.rank * rows_per_shard
     if text_mode:
         flat = torch.cat([reads_l.reshape(-1), halo_l.reshape(-1)])
-        pos = torch.arange(rows_per_shard, dtype=torch.int32, device=flat.device)
+        pos = torch.arange(rows_per_shard, dtype=torch.int32,
+                           device=flat.device) + base
         if cfg.use_pallas:
             from repro_torch.kernels import ops as kops
 
@@ -165,24 +188,25 @@ def _map_phase(reads_l, lengths_l, halo_l, *, cfg, rows_per_shard, stride_bits,
                 [keys[:, 0], keys[:, 1], torch.zeros_like(pos), pos], dim=-1)
             del keys
         else:
-            rec = encoding.make_records_text(flat, cfg, pos_base=0,
+            rec = encoding.make_records_text(flat, cfg, pos_base=base,
                                              n_emit=rows_per_shard)
         valid0 = pos < text_len
     else:
         rec, valid0 = encoding.make_records_reads(
-            reads_l, lengths_l, cfg, read_id_base=0, stride_bits=stride_bits)
+            reads_l, lengths_l, cfg, read_id_base=base, stride_bits=stride_bits)
     rec.masked_fill_(~valid0[:, None], KEY_SENTINEL)
-    s_hi, s_lo = sample_splitters(rec[:, 0], rec[:, 1], cfg.samples_per_shard)
-    bucket = lex_bucket(rec[:, 0], rec[:, 1], s_hi, s_lo)
+    s_hi, s_lo = sample_splitters(rec[:, 0], rec[:, 1], cfg.samples_per_shard, ranks)
     # invalid padding records go to a local dump bucket, never shipped
-    bucket = torch.where(valid0, bucket, 1)
+    bucket = partition(rec[:, 0], rec[:, 1], s_hi, s_lo, cfg, valid0)
     return rec, valid0, bucket
 
 
-def exact_shuffle_cap(bucket: torch.Tensor, num_shards: int) -> int:
-    """Adaptive pre-pass: the exact max per-(sender, bucket) record count."""
+def exact_shuffle_cap(bucket: torch.Tensor, num_shards: int, ranks: Ranks) -> int:
+    """Adaptive pre-pass: the exact max per-(sender, bucket) record count
+    over the ranks (``repro.core.pipeline._hist_fn``'s histograms), from the
+    buckets of the valid records."""
     hist = torch.bincount(bucket.long(), minlength=num_shards + 1)[:num_shards]
-    return max(1, int(hist.max()))
+    return max(1, int(pmax(hist.max(), ranks)))
 
 
 def fetch_capacity(shuffle_cap: int, cfg: SAConfig, num_shards: int) -> int:
@@ -192,26 +216,27 @@ def fetch_capacity(shuffle_cap: int, cfg: SAConfig, num_shards: int) -> int:
                                 * cfg.shuffle_slack / d)))
 
 
-def _device_fn(reads_l, lengths_l, halo_l, *, cfg: SAConfig, info: dict):
-    """The single-shard SA pipeline body.  Returns (ih, il, statvec)."""
-    d = 1
+def _device_fn(reads_l, lengths_l, halo_l, *, cfg: SAConfig, info: dict,
+               ranks: Ranks):
+    """The per-rank SA pipeline body.  Returns (ih, il, statvec)."""
+    d = ranks.size
     k = cfg.prefix_len
     text_mode, text_len = info["text_mode"], info["text_len"]
     stride_bits, uniform_len = info["stride_bits"], info["uniform_len"]
     rec, valid0, bucket = _map_phase(
         reads_l, lengths_l, halo_l, cfg=cfg,
         rows_per_shard=info["rows_per_shard"], stride_bits=stride_bits,
-        text_mode=text_mode, text_len=text_len,
+        text_mode=text_mode, text_len=text_len, ranks=ranks,
     )
     n_valid_local = valid0.sum()
-    shuffle_cap = (exact_shuffle_cap(bucket, d) if cfg.adaptive
+    shuffle_cap = (exact_shuffle_cap(bucket, d, ranks) if cfg.adaptive
                    else info["shuffle_cap"])
 
-    # ---- Shuffle: bucket scatter; the exchange is the identity ----------
+    # ---- Shuffle: the 16-byte-record all_to_all ------------------------
     buf, slot, _ = bucket_scatter(rec, bucket, d + 1, shuffle_cap, KEY_SENTINEL)
     drop_shuffle = torch.sum(valid0 & (slot >= d * shuffle_cap))
     del rec, bucket, slot, valid0
-    recv = exchange(buf[:d]).reshape(d * shuffle_cap, 4)
+    recv = exchange(buf[:d], ranks).reshape(d * shuffle_cap, 4)
     cols = [recv[:, i].contiguous() for i in range(4)]
     del buf, recv
 
@@ -239,6 +264,7 @@ def _device_fn(reads_l, lengths_l, halo_l, *, cfg: SAConfig, info: dict):
         rows_per_shard=info["rows_per_shard"],
         row_len=info["row_len"],
         request_capacity=fetch_capacity(shuffle_cap, cfg, d),
+        ranks=ranks,
     )
     if text_mode:  # store shard = tokens + right halo
         store_local = torch.cat([reads_l.reshape(-1), halo_l.reshape(-1)])[:, None]
@@ -344,20 +370,38 @@ def build_suffix_array(
     lengths=None,
     cfg: SAConfig = SAConfig(),
     device=None,
+    group=None,
 ) -> SAResult:
     """Build the suffix array of ``corpus`` with the paper's scheme.
 
     corpus: (R, L) int32 reads (tokens 1..V, 0 padding) or (n,) int32 text.
     device: ``None``/``"cuda"`` for the card (raises without CUDA), or
-    ``"cpu"`` for the plain PyTorch path.
+    ``"cpu"`` for the plain PyTorch path.  group: the ``torch.distributed``
+    process group to build on (``None``: the initialized world, one rank
+    without one).  Every rank passes the whole corpus, builds on its shard
+    and returns the same result.
     """
+    ranks = world(group)
     dev = resolve_device(device)
-    info = plan(np.shape(corpus), cfg, 1, lengths)
-    data, lens, halo = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in _shard_inputs(corpus, lengths, cfg, 1, info))
-    ih, il, statvec = _device_fn(data, lens, halo, cfg=cfg, info=info)
-    return _finalize(ih.cpu().numpy(), il.cpu().numpy(),
-                     statvec.cpu().numpy()[None, :], corpus, cfg)
+    info = plan(np.shape(corpus), cfg, ranks.size, lengths)
+    data, lens, halo = local_shard(corpus, lengths, cfg, info, ranks, dev)
+    ih, il, statvec = _device_fn(data, lens, halo, cfg=cfg, info=info, ranks=ranks)
+    return _finalize(gathered(ih, ranks).reshape(-1), gathered(il, ranks).reshape(-1),
+                     gathered(statvec, ranks), corpus, cfg)
+
+
+def local_shard(corpus, lengths, cfg: SAConfig, info: dict, ranks: Ranks, dev):
+    """This rank's (data, lengths, halo) of :func:`_shard_inputs`' layout,
+    as tensors on ``dev``."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            a.reshape(ranks.size, -1, *a.shape[1:])[ranks.rank])).to(dev)
+        for a in _shard_inputs(corpus, lengths, cfg, ranks.size, info))
+
+
+def gathered(x: torch.Tensor, ranks: Ranks) -> np.ndarray:
+    """Every rank's ``x`` (equal shapes), stacked in rank order on the host."""
+    return all_gather(x, ranks).cpu().numpy()
 
 
 def _finalize(ih, il, statmat, corpus, cfg: SAConfig) -> SAResult:
@@ -405,22 +449,26 @@ def _finalize(ih, il, statmat, corpus, cfg: SAConfig) -> SAResult:
 
 def _refiner_fn(idx_hi, idx_lo, reads_l, lengths_l, halo_l, *, cfg: SAConfig,
                 rows_per_shard: int, row_len: int, stride_bits: int, cap: int,
-                max_rounds: int, uniform_len, text_mode: bool, text_len: int):
-    """Rank an arbitrary suffix-index set at one shard
+                max_rounds: int, uniform_len, text_mode: bool, text_len: int,
+                ranks: Ranks):
+    """Rank this rank's slice of an arbitrary suffix-index set
     (``repro.core.pipeline._refiner_fn``).
 
     Padding slots carry ``idx_hi == -1``.  The depth-0 windows come from
-    :func:`mget_window`; the records are bucketed and sorted as the
-    pipeline's reducer sorts them, and still-tied groups refine with
-    :func:`_refine_tie_groups`.  ``cap`` is the padded batch length; the
-    fetch capacity is ``cap``, so nothing drops.  Returns ``(ih, il,
-    statvec)`` with statvec ``[count, requests, request_bytes,
-    response_bytes, rounds, retries, unresolved, max_depth]``.
+    :func:`mget_window` (remote: an index's tokens live on whichever rank
+    owns them); the records are sample-sorted across the ranks (equal keys
+    colocate) and sorted as the pipeline's reducer sorts them, and
+    still-tied groups refine with :func:`_refine_tie_groups`.  ``cap`` is
+    the slice length; the fetch capacity is ``d * cap``, since after the
+    sample sort one rank can hold ``d * cap`` tied records whose requests
+    all go to one owner, so nothing drops.  Returns ``(ih, il, statvec)``
+    with statvec ``[count, requests, request_bytes, response_bytes, rounds,
+    retries, unresolved, max_depth]``.
     """
-    d = 1
+    d = ranks.size
     valid0 = idx_hi >= 0
     spec = StoreSpec(num_shards=d, rows_per_shard=rows_per_shard,
-                     row_len=row_len, request_capacity=d * cap)
+                     row_len=row_len, request_capacity=d * cap, ranks=ranks)
     if text_mode:
         store_local = torch.cat([reads_l.reshape(-1), halo_l.reshape(-1)])[:, None]
         row = torch.where(valid0, idx_lo, 0)
@@ -435,11 +483,11 @@ def _refiner_fn(idx_hi, idx_lo, reads_l, lengths_l, halo_l, *, cfg: SAConfig,
     rec = torch.stack([kh, kl, torch.where(valid0, idx_hi, KEY_SENTINEL),
                        torch.where(valid0, idx_lo, KEY_SENTINEL),
                        exh0.to(torch.int32)], dim=1)
-    s_hi, s_lo = sample_splitters(kh, kl, cfg.samples_per_shard)
-    bucket = torch.where(valid0, lex_bucket(kh, kl, s_hi, s_lo), d)
+    s_hi, s_lo = sample_splitters(kh, kl, cfg.samples_per_shard, ranks)
+    bucket = partition(kh, kl, s_hi, s_lo, cfg, valid0)
     buf, slot, _ = bucket_scatter(rec, bucket, d + 1, cap, KEY_SENTINEL)
     drop = torch.sum(valid0 & (slot >= d * cap))
-    recv = exchange(buf[:d]).reshape(d * cap, 5)
+    recv = exchange(buf[:d], ranks).reshape(d * cap, 5)
     kh, kl, ih, il, exh_i = lex_sort([recv[:, i].contiguous() for i in range(4)],
                                      [recv[:, 4].contiguous()])
     validr = ih != KEY_SENTINEL
@@ -477,25 +525,28 @@ def _refiner_fn(idx_hi, idx_lo, reads_l, lengths_l, halo_l, *, cfg: SAConfig,
 
 class DeviceRefiner:
     """Device-resident ranking of arbitrary suffix-index sets
-    (``repro.core.pipeline.DeviceRefiner`` at world size 1).
+    (``repro.core.pipeline.DeviceRefiner``).
 
     The out-of-core merge's ``merge_backend="device"``: where the host merge
     would rank a batch of global suffix indexes with store fetches, this
-    runs the pipeline's group-synchronous refinement loop over a copy of
-    the corpus on ``device``.  Batches are padded to the next power of two,
-    as the JAX class pads them, so the fetch counters (``requests``,
-    ``request_bytes``, ``response_bytes``, ``rounds``) and
+    runs the pipeline's group-synchronous refinement loop over this rank's
+    shard of the corpus on ``device``, on the ranks of ``group`` (``None``:
+    the initialized world, one rank without one); every rank passes the
+    same batch and gets the same order.  Batches are padded to the next
+    power of two a rank, as the JAX class pads them, so the fetch counters
+    (``requests``, ``request_bytes``, ``response_bytes``, ``rounds``) and
     ``peak_records`` equal the JAX package's.
     """
 
-    def __init__(self, corpus, cfg: SAConfig, lengths=None, device=None):
+    def __init__(self, corpus, cfg: SAConfig, lengths=None, device=None,
+                 group=None):
         self.cfg = cfg
+        self.ranks = world(group)
         self.device = resolve_device(device)
         corpus = np.asarray(corpus, np.int32)
-        self.info = plan(corpus.shape, cfg, 1, lengths)
-        self._data, self._lens, self._halo = (
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for a in _shard_inputs(corpus, lengths, cfg, 1, self.info))
+        self.info = plan(corpus.shape, cfg, self.ranks.size, lengths)
+        self._data, self._lens, self._halo = local_shard(
+            corpus, lengths, cfg, self.info, self.ranks, self.device)
         # accounting (read by the superblock merge)
         self.requests = 0
         self.request_bytes = 0
@@ -511,21 +562,24 @@ class DeviceRefiner:
         m = int(gidx.shape[0])
         if m <= 1:
             return gidx.clone()
-        cap = 1 << max(0, m - 1).bit_length()
-        ih = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
-        il = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
+        d, me = self.ranks.size, self.ranks.rank
+        cap = 1 << max(0, -(-m // d) - 1).bit_length()
+        ih = torch.full((cap * d,), -1, dtype=torch.int32, device=self.device)
+        il = torch.full((cap * d,), -1, dtype=torch.int32, device=self.device)
         ih[:m] = (gidx >> WORD_BITS).to(torch.int32)
         il[:m] = (gidx & (WORD_MOD - 1)).to(torch.int32)
         info = self.info
         out_ih, out_il, statvec = _refiner_fn(
-            ih, il, self._data, self._lens, self._halo, cfg=self.cfg,
+            ih[me * cap : (me + 1) * cap], il[me * cap : (me + 1) * cap],
+            self._data, self._lens, self._halo, cfg=self.cfg,
             rows_per_shard=info["rows_per_shard"], row_len=info["row_len"],
             stride_bits=info["stride_bits"], cap=cap,
             max_rounds=info["max_rounds"], uniform_len=info["uniform_len"],
             text_mode=info["text_mode"], text_len=info["text_len"],
+            ranks=self.ranks,
         )
-        count, req, req_b, resp_b, rounds, retries, unresolved, _ = (
-            statvec.tolist())
+        statmat = gathered(statvec, self.ranks)
+        count, req, req_b, resp_b, _, retries, unresolved, _ = statmat.sum(0).tolist()
         if unresolved > 0 or retries > 0:
             raise RuntimeError(
                 "device refinement did not converge (unresolved ties/drops)")
@@ -533,16 +587,19 @@ class DeviceRefiner:
         self.requests += req
         self.request_bytes += req_b
         self.response_bytes += resp_b
-        self.rounds += rounds
+        self.rounds += int(statmat[:, 4].max())
         self.peak_records = max(self.peak_records, m)
         assert count == m, (count, m)
-        return (out_ih[:m].long() << WORD_BITS) | out_il[:m].long()
+        out = (out_ih.long() << WORD_BITS) | out_il.long()
+        if d == 1:
+            return out[:m]
+        runs = all_gather(out, self.ranks)
+        return torch.cat([runs[i, : int(c)] for i, c in enumerate(statmat[:, 0])])
 
 
 def refine_indices(corpus, gidx, cfg: SAConfig = SAConfig(), lengths=None,
-                   device=None) -> np.ndarray:
+                   device=None, group=None) -> np.ndarray:
     """One-shot convenience wrapper over :class:`DeviceRefiner`; returns a
     host int64 array, as the JAX package does."""
-    return DeviceRefiner(corpus, cfg, lengths=lengths,
-                         device=device).refine(gidx).cpu().numpy()
-
+    return DeviceRefiner(corpus, cfg, lengths=lengths, device=device,
+                         group=group).refine(gidx).cpu().numpy()

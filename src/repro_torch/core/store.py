@@ -1,15 +1,18 @@
-"""The in-memory data store at one shard: ``mgetsuffix`` (paper §IV, Redis).
+"""The in-memory data store: ``mgetsuffix`` (paper §IV, Redis).
 
 The port of ``repro.core.store``, in two halves.
 
-Device half.  The corpus stays resident on the card and requests carry
-indexes only; ``mget_window`` routes a batch of (row, offset) requests to the
-owner shard, gathers the K-token windows there (the ``window_gather`` kernel
-under ``cfg.use_pallas``) and returns them, or the already-packed key words
-under ``server_pack``.  ``serve_windows`` is what the pipeline calls: the same
-service at one shard, but it gathers and packs only the served rows, a
-bounded chunk at a time, so a round over 201 M suffixes never holds a window
-per capacity slot.
+Device half.  The corpus stays resident on the card, sharded over the ranks
+of ``StoreSpec.ranks`` in blocks of ``rows_per_shard`` rows, and requests
+carry indexes only; ``mget_window`` routes a batch of (row, offset) requests
+to their owner ranks with one ``exchange``, gathers the K-token windows there
+(the ``window_gather`` kernel under ``cfg.use_pallas``), a bounded chunk of
+slots at a time, and returns them with a second ``exchange``, or the
+already-packed key words under ``server_pack``.  ``serve_windows`` is what
+the pipeline calls at one shard: the same service, but it gathers and packs
+only the served rows, so a round over 201 M suffixes never holds a window
+per capacity slot.  The rank store (``mget_scalar``, ``scatter_update``)
+routes one int32 a position the same way.
 
 Serving half (``StoreBackend``, ``InMemoryBackend``, ``ChunkedFileBackend``,
 the proxies ``ThrottledBackend``, ``RetryingBackend`` and ``FlakyBackend``,
@@ -43,7 +46,7 @@ import torch
 
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
-from repro_torch.core.distributed import bucket_scatter, exchange, lex_order
+from repro_torch.core.distributed import SINGLE, Ranks, bucket_scatter, exchange, lex_order
 from repro_torch.core.integrity import (
     DEFAULT_RETRYABLE,
     CorruptionError,
@@ -69,12 +72,14 @@ def index_request_bytes(num_items: int, stride_bits: int) -> int:
 
 @dataclass(frozen=True)
 class StoreSpec:
-    """Static layout of the store (one shard in this slice)."""
+    """Static layout of the store; ``ranks`` holds its shards, one a rank
+    (the JAX package's ``axis``)."""
 
     num_shards: int
     rows_per_shard: int  # reads mode: rows; text mode: tokens
     row_len: int  # L (reads) or 1 (text)
     request_capacity: int  # per-destination capacity
+    ranks: Ranks = SINGLE
 
     @property
     def is_text(self) -> bool:
@@ -145,20 +150,21 @@ def mget_window(
     cfg: SAConfig,
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, FetchStats]:
-    """Batched window fetch ("mgetsuffix") at one shard.
+    """Batched window fetch ("mgetsuffix") from the sharded store.
 
     The contract of ``repro.core.store.mget_window``: requests are bucketed
-    by owner with ``request_capacity`` slots per owner, the owner gathers a
-    window for every slot, and responses are routed back by slot.
-    Returns (win_or_words, exhausted, ok, stats): (M, K) windows or
-    (M, key_words) packed words under ``cfg.server_pack``; ``exhausted`` is
-    True where the window ran past the suffix end or the request was not
-    served; ``ok`` is False for inactive requests and capacity drops.
+    by owner rank with ``request_capacity`` slots per owner and exchanged;
+    the owner gathers a window for every slot it received, at most
+    ``FETCH_CHUNK`` slots at a time, and the responses are exchanged back and
+    routed by slot.  ``local_rows`` is this rank's shard, ``row_id`` and
+    ``offset`` global.  Returns (win_or_words, exhausted, ok, stats):
+    (M, K) windows or (M, key_words) packed words under ``cfg.server_pack``;
+    ``exhausted`` is True where the window ran past the suffix end or the
+    request was not served; ``ok`` is False for inactive requests and
+    capacity drops.
     """
     k = window or cfg.prefix_len
     d, cap = spec.num_shards, spec.request_capacity
-    if d != 1:
-        raise NotImplementedError("mget_window across shards is ROADMAP.md item 10")
 
     owner = torch.where(active, torch.div(row_id, spec.rows_per_shard,
                                           rounding_mode="floor"), d)
@@ -168,17 +174,25 @@ def mget_window(
     buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
     dropped = torch.sum(active & (slot >= d * cap))
 
-    recv = exchange(buf[:d])
-    req_row = recv[..., 0].reshape(-1)
-    req_off = recv[..., 1].reshape(-1).contiguous()
-    local_row = torch.where(req_row >= 0, req_row, -1).contiguous()
-    windows = _gather(local_rows, local_row, req_off, spec, cfg, k)
-    exhausted_w = torch.any(windows == 0, dim=-1)
-    payload = encoding.pack_words(windows, cfg) if cfg.server_pack else windows
-    resp_width = payload.shape[1]
-    payload = torch.cat([payload, exhausted_w[:, None].to(torch.int32)], dim=1)
+    recv = exchange(buf[:d], spec.ranks).reshape(d * cap, 2)
+    del buf
+    base = spec.ranks.rank * spec.rows_per_shard
+    resp_width = cfg.key_words if cfg.server_pack else k
+    payload = torch.empty((d * cap, resp_width + 1), dtype=torch.int32,
+                          device=recv.device)
+    for lo in range(0, d * cap, FETCH_CHUNK):
+        hi = lo + FETCH_CHUNK
+        req_row = recv[lo:hi, 0]
+        local_row = torch.where(req_row >= 0, req_row - base, -1).contiguous()
+        windows = _gather(local_rows, local_row, recv[lo:hi, 1].contiguous(),
+                          spec, cfg, k)
+        payload[lo:hi, resp_width] = torch.any(windows == 0, dim=-1)
+        payload[lo:hi, :resp_width] = (
+            encoding.pack_words(windows, cfg) if cfg.server_pack else windows)
+        del windows, local_row
+    del recv
 
-    flatresp = exchange(payload.reshape(d, cap, resp_width + 1))
+    flatresp = exchange(payload.reshape(d, cap, resp_width + 1), spec.ranks)
     flatresp = flatresp.reshape(d * cap, resp_width + 1)
     guard = torch.zeros((1, resp_width + 1), dtype=flatresp.dtype,
                         device=flatresp.device)
@@ -199,7 +213,9 @@ def serve_windows(
     cfg: SAConfig,
     chunk: int = FETCH_CHUNK,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, FetchStats]:
-    """:func:`mget_window` at one shard, gathering only the served rows.
+    """:func:`mget_window` at one shard, gathering only the served rows
+    (the pipeline's fetch at one rank; at D ranks it calls
+    :func:`mget_window`).
 
     Which requests are served is decided over the whole batch first, as
     ``bucket_scatter`` routes them: active requests owned by shard 0 are
@@ -214,7 +230,7 @@ def serve_windows(
     """
     k = cfg.prefix_len
     if spec.num_shards != 1:
-        raise NotImplementedError("mget_window across shards is ROADMAP.md item 10")
+        raise ValueError("serve_windows serves one shard; use mget_window")
     m = row_id.shape[0]
     dev = row_id.device
     owned = active & (row_id < spec.rows_per_shard)
@@ -248,8 +264,6 @@ def _scalar_owner(pos: torch.Tensor, active: torch.Tensor, spec: StoreSpec):
     """Owner shard of each active in-range position; ``num_shards`` (the
     dump bucket) for the rest."""
     d = spec.num_shards
-    if d != 1:
-        raise NotImplementedError("the rank store across shards is ROADMAP.md item 10")
     live = active & (pos >= 0) & (pos < d * spec.rows_per_shard)
     return torch.where(live, torch.div(pos, spec.rows_per_shard, rounding_mode="floor"),
                        d).to(torch.int32)
@@ -263,20 +277,21 @@ def mget_scalar(
     fill: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fetch one int32 per global position from the rank store
-    (``repro.core.store.mget_scalar`` at one shard): requests are bucketed
-    by owner with ``request_capacity`` slots, served there, and routed back
-    by slot; an unserved or inactive request reads ``fill``.  Returns
+    (``repro.core.store.mget_scalar``): requests are bucketed by owner rank
+    with ``request_capacity`` slots, exchanged, served there, and routed
+    back by slot; an unserved or inactive request reads ``fill``.  Returns
     (values, dropped)."""
     d, cap = spec.num_shards, spec.request_capacity
     owner = _scalar_owner(pos, active, spec)
     reqs = torch.stack([pos, torch.zeros_like(pos)], dim=1)
     buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
     dropped = torch.sum(active & (slot >= d * cap)).to(torch.int32)
-    req_pos = exchange(buf[:d])[..., 0].reshape(-1)
-    ok = (req_pos >= 0) & (req_pos < spec.rows_per_shard)
-    lp = req_pos.clamp(0, spec.rows_per_shard - 1).long()
+    req_pos = exchange(buf[:d], spec.ranks)[..., 0].reshape(-1)
+    lp = req_pos - spec.ranks.rank * spec.rows_per_shard
+    ok = (req_pos >= 0) & (lp >= 0) & (lp < spec.rows_per_shard)
+    lp = lp.clamp(0, spec.rows_per_shard - 1).long()
     vals = torch.where(ok, local_vals[lp], fill)
-    resp = exchange(vals.reshape(d, cap, 1)).reshape(-1)
+    resp = exchange(vals.reshape(d, cap, 1), spec.ranks).reshape(-1)
     resp = torch.cat([resp, resp.new_full((1,), fill)])
     back = resp[slot.long().clamp(0, d * cap)]
     return torch.where(active & (slot < d * cap), back, fill), dropped
@@ -290,19 +305,19 @@ def scatter_update(
     spec: StoreSpec,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter (pos -> value) into the rank store, the rank write-back
-    (``repro.core.store.scatter_update`` at one shard): requests past an
-    owner's ``request_capacity`` are dropped.  Returns (new_local_vals,
-    dropped)."""
+    (``repro.core.store.scatter_update``): requests past an owner's
+    ``request_capacity`` are dropped.  Returns (new_local_vals, dropped)."""
     d, cap = spec.num_shards, spec.request_capacity
     rows = spec.rows_per_shard
     owner = _scalar_owner(pos, active, spec)
     reqs = torch.stack([pos, values], dim=1)
     buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
     dropped = torch.sum(active & (slot >= d * cap)).to(torch.int32)
-    recv = exchange(buf[:d]).reshape(d * cap, 2)
-    ok = (recv[:, 0] >= 0) & (recv[:, 0] < rows)
+    recv = exchange(buf[:d], spec.ranks).reshape(d * cap, 2)
+    lp = recv[:, 0] - spec.ranks.rank * rows
+    ok = (recv[:, 0] >= 0) & (lp >= 0) & (lp < rows)
     padded = torch.cat([local_vals, local_vals.new_zeros((1,))])
-    padded[recv[:, 0][ok].long()] = recv[:, 1][ok]
+    padded[lp[ok].long()] = recv[:, 1][ok]
     return padded[:rows], dropped
 
 

@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
-from repro_torch.core.distributed import lex_order, run_starts
+from repro_torch.core.distributed import lex_order, refuse_ranks, run_starts
 from repro_torch.core.integrity import CorruptionError, crc32_array, publish_file
 from repro_torch.core.journal import JOURNAL_NAME, BuildJournal, verify_spilled_run
 from repro_torch.core.lcp import lcp_from_sa, pairwise_lcp
@@ -1215,6 +1215,7 @@ def build_suffix_array_superblock(
     temporary files are swept first, and a failed build keeps its scratch
     directory and journal for the next attempt.
     """
+    refuse_ranks("the out-of-core and streaming builds")
     # a scratch directory whenever the build streams, and always when it is
     # journaled: block runs then spill on every backend, so a resumed build
     # has something durable to adopt

@@ -1,4 +1,4 @@
-"""TeraSort baseline for SA construction (paper §III) at one shard.
+"""TeraSort baseline for SA construction (paper §III).
 
 The port of ``repro.core.terasort``.  "Keeping every suffix in place": every
 suffix is materialized as a fixed-width padded record of ``w = ceil((L+1) /
@@ -9,15 +9,19 @@ rides the shuffle, where the scheme shuffles 16-byte records.  Dataflow:
               at a time from shifted token slices (the JAX package's
               (rows, L+1, w * cpw) window tensor would take 167 GB at
               1 M reads of 200 tokens)
-  Partition : ``sample_splitters`` + ``lex_bucket`` on the first two words
-              (no splitters at one shard)
-  Shuffle   : capacity-padded ``bucket_scatter``; the exchange is the identity
-  Sort      : one sort over all w + 2 words
+  Partition : ``sample_splitters`` across the ranks + the range partition
+              on the first two words (no splitters at one rank)
+  Shuffle   : capacity-padded ``bucket_scatter`` and one all_to_all of the
+              whole records (the identity at one rank)
+  Sort      : one sort over all w + 2 words on each rank
               (:func:`repro_torch.core.distributed.lex_order`)
 
 Reads mode only (the paper's case): long-text suffixes are unbounded and
-cannot be materialized at fixed width.  No kernel runs on this path, as none
-runs on the JAX package's.  World size > 1 is ROADMAP.md item 10.
+cannot be materialized at fixed width.  Each rank maps its shard of the
+reads (one process a rank; one rank without a process group).  At one rank
+no kernel runs on this path, as none runs on the JAX package's; at D ranks
+under ``cfg.use_pallas`` the partition is the ``bucket_hist`` kernel, here
+and in the scheme Map that sizes the shuffle.
 """
 from __future__ import annotations
 
@@ -27,13 +31,21 @@ import torch
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
 from repro_torch.core.distributed import (
+    Ranks,
     bucket_scatter,
     exchange,
-    lex_bucket,
     lex_order,
+    partition,
     sample_splitters,
+    world,
 )
-from repro_torch.core.pipeline import _map_phase, _shard_inputs, exact_shuffle_cap, plan
+from repro_torch.core.pipeline import (
+    _map_phase,
+    exact_shuffle_cap,
+    gathered,
+    local_shard,
+    plan,
+)
 from repro_torch.core.store import token_bytes
 from repro_torch.core.types import KEY_SENTINEL, Footprint, SAResult, global_index, pack_index
 from repro_torch.device import resolve_device
@@ -48,9 +60,10 @@ def _suffix_words(l: int, cfg: SAConfig) -> int:
 
 
 def _map_records(reads_l, lengths_l, *, cfg: SAConfig, stride_bits: int,
-                 chunk: int = MAP_CHUNK):
-    """Map: every suffix -> ``[w key words, idx_hi, idx_lo]``, rows past a
-    read's length all ``KEY_SENTINEL``.  Returns (records, valid count)."""
+                 row_base: int = 0, chunk: int = MAP_CHUNK):
+    """Map: every suffix -> ``[w key words, idx_hi, idx_lo]`` (local read
+    ``i`` is read ``row_base + i``), rows past a read's length all
+    ``KEY_SENTINEL``.  Returns (records, valid count)."""
     r, l = reads_l.shape
     w = _suffix_words(l, cfg)
     dev = reads_l.device
@@ -61,7 +74,8 @@ def _map_records(reads_l, lengths_l, *, cfg: SAConfig, stride_bits: int,
         hi = min(r, lo + step)
         out = rec[lo * (l + 1) : hi * (l + 1)].view(hi - lo, l + 1, w + 2)
         out[..., :w] = encoding.suffix_words(reads_l[lo:hi], w, cfg)
-        rows = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
+        rows = torch.arange(row_base + lo, row_base + hi, dtype=torch.int32,
+                            device=dev)[:, None]
         rows = rows.expand(hi - lo, l + 1)
         out[..., w], out[..., w + 1] = pack_index(rows, offs.expand_as(rows),
                                                   stride_bits)
@@ -73,21 +87,22 @@ def _map_records(reads_l, lengths_l, *, cfg: SAConfig, stride_bits: int,
 
 
 def _device_fn(reads_l, lengths_l, *, cfg: SAConfig, stride_bits: int,
-               shuffle_cap: int):
-    """The single-shard TeraSort body.  Returns (ih, il, statvec) with
-    statvec ``[count, valid suffixes, dropped]``."""
-    d = 1
+               shuffle_cap: int, ranks: Ranks):
+    """The per-rank TeraSort body.  Returns (ih, il, statvec) with statvec
+    ``[count, valid suffixes, dropped]``."""
+    d = ranks.size
     w = _suffix_words(reads_l.shape[1], cfg)
-    rec, n_valid = _map_records(reads_l, lengths_l, cfg=cfg, stride_bits=stride_bits)
+    rec, n_valid = _map_records(reads_l, lengths_l, cfg=cfg, stride_bits=stride_bits,
+                                row_base=ranks.rank * reads_l.shape[0])
 
     # Partition on the first two words (TeraSort's 10-byte key analogue)
-    s_hi, s_lo = sample_splitters(rec[:, 0], rec[:, 1], cfg.samples_per_shard)
-    bucket = lex_bucket(rec[:, 0], rec[:, 1], s_hi, s_lo)
+    s_hi, s_lo = sample_splitters(rec[:, 0], rec[:, 1], cfg.samples_per_shard, ranks)
+    bucket = partition(rec[:, 0], rec[:, 1], s_hi, s_lo, cfg)
 
     # Shuffle the full payload (the baseline's sin)
     buf, _, drop = bucket_scatter(rec, bucket, d, shuffle_cap, KEY_SENTINEL)
     del rec, bucket
-    recv = exchange(buf).reshape(d * shuffle_cap, w + 2)
+    recv = exchange(buf, ranks).reshape(d * shuffle_cap, w + 2)
     del buf
 
     # Sort on every word; the index words make each valid record unique and
@@ -100,34 +115,41 @@ def _device_fn(reads_l, lengths_l, *, cfg: SAConfig, stride_bits: int,
 
 
 def build_suffix_array_terasort(
-    corpus, lengths=None, cfg: SAConfig = SAConfig(), device=None,
+    corpus, lengths=None, cfg: SAConfig = SAConfig(), device=None, group=None,
 ) -> SAResult:
     """Build the suffix array of an (R, L) read set the TeraSort way.
 
     device: ``None``/``"cuda"`` for the card (raises without CUDA), or
-    ``"cpu"`` for the plain PyTorch path.  The shuffle capacity is the scheme
-    Map's exact bucket histogram under ``cfg.adaptive``, else ``plan``'s.
+    ``"cpu"`` for the plain PyTorch path.  group: the process group to
+    build on (``None``: the initialized world, one rank without one); every
+    rank passes the whole corpus and returns the same result.  The shuffle
+    capacity is the scheme Map's exact bucket histogram under
+    ``cfg.adaptive``, else ``plan``'s.
     """
     corpus = np.asarray(corpus, np.int32)
     if corpus.ndim != 2:
         raise ValueError("TeraSort baseline supports read-set mode only")
+    ranks = world(group)
     dev = resolve_device(device)
-    info = plan(corpus.shape, cfg, 1, lengths)
-    data, lens, halo = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in _shard_inputs(corpus, lengths, cfg, 1, info))
+    info = plan(corpus.shape, cfg, ranks.size, lengths)
+    data, lens, halo = local_shard(corpus, lengths, cfg, info, ranks, dev)
     shuffle_cap = info["shuffle_cap"]
     if cfg.adaptive:
         _, _, bucket = _map_phase(
             data, lens, halo, cfg=cfg, rows_per_shard=info["rows_per_shard"],
-            stride_bits=info["stride_bits"], text_mode=False, text_len=0)
-        shuffle_cap = exact_shuffle_cap(bucket, 1)
+            stride_bits=info["stride_bits"], text_mode=False, text_len=0,
+            ranks=ranks)
+        shuffle_cap = exact_shuffle_cap(bucket, ranks.size, ranks)
         del bucket
 
     ih, il, statvec = _device_fn(data, lens, cfg=cfg,
                                  stride_bits=info["stride_bits"],
-                                 shuffle_cap=shuffle_cap)
-    count, n_suffix, dropped = statvec.tolist()
-    sa = global_index(ih[:count].cpu().numpy(), il[:count].cpu().numpy())
+                                 shuffle_cap=shuffle_cap, ranks=ranks)
+    statmat = gathered(statvec, ranks)
+    ih, il = gathered(ih, ranks), gathered(il, ranks)
+    sa = np.concatenate([global_index(ih[i, :c], il[i, :c])
+                         for i, c in enumerate(statmat[:, 0].tolist())])
+    n_suffix, dropped = (int(x) for x in statmat[:, 1:].sum(0))
 
     l = corpus.shape[1]
     tb = token_bytes(cfg.vocab_size)

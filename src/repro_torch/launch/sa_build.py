@@ -34,6 +34,18 @@ synthesized corpus written there first and kept.  ``--device cuda`` (the
 default) runs on ``cuda:0`` with the hand-written kernels
 (``use_pallas=True``; the terasort and doubling modes run none);
 ``--device cpu`` runs the plain PyTorch path.
+
+Under ``torchrun`` every process is one rank of the build:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.sa_build --device cpu --reads 2000 --mode terasort
+
+Each rank joins the process group from the environment (``init_ranks``:
+NCCL where every local rank has a card of its own, gloo otherwise, the
+choice printed to stderr), builds its shard in any ``--mode``, and rank 0
+prints the lines ``repro.launch.sa_build`` prints on as many devices.  The
+out-of-core and streaming builds, ``--corpus-file`` and ``--index-dir`` (with
+``--resume``) refuse more than one rank: ROADMAP.md item 10b.
 """
 from __future__ import annotations
 
@@ -172,6 +184,43 @@ def write_corpus_file(corpus, args) -> None:
           f"{meta.num_chunks} chunks of {meta.chunk_items}")
 
 
+def backend_for(device: str, local_ranks: int) -> str:
+    """The process group's backend: NCCL where every one of the host's
+    ``local_ranks`` has a card of its own, gloo otherwise (the CPU, or
+    ranks sharing a card: NCCL takes one rank a card)."""
+    import torch
+
+    if device == "cuda" and torch.cuda.device_count() >= local_ranks:
+        return "nccl"
+    return "gloo"
+
+
+def init_ranks(device: str):
+    """Join the process group that ``torchrun`` describes in the environment
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``...), if
+    one does and none is joined yet.  Returns this process's ranks handle
+    (:class:`repro_torch.core.distributed.Ranks`), the single-rank handle
+    outside ``torchrun``."""
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import world
+    from repro_torch.device import local_card
+
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+        backend = backend_for(device, local)
+        dist.init_process_group(backend)
+        if dist.get_rank() == 0:
+            print(f"process group: {dist.get_world_size()} ranks over {backend}",
+                  file=sys.stderr)
+        if device == "cuda":
+            torch.cuda.set_device(local_card())
+    return world()
+
+
 def run(corpus, cfg, device: str, sb=None, mode: str = "scheme"):
     """Build in ``mode``; returns (result, wall seconds), device work
     included.  ``terasort`` and ``doubling`` take an in-core corpus."""
@@ -223,9 +272,31 @@ def report(res, dt: float, mode: str = "scheme", index_dir=None) -> None:
 
 
 def main(argv=None):
-    from repro_torch.core.superblock import corpus_shape_of, plan_superblocks
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import refuse_ranks
 
     args = parse_args(argv)
+    joined = not dist.is_initialized()
+    ranks = init_ranks(args.device)
+    joined = joined and dist.is_initialized()  # left as a caller set it up
+    try:
+        if args.index_dir:
+            refuse_ranks("--index-dir")
+        if args.corpus_file:
+            refuse_ranks("--corpus-file")
+        return _build(args, echo=ranks.rank == 0)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _build(args, echo: bool):
+    """Synthesize or load the corpus, build it in ``args.mode``, and print
+    the report when ``echo`` (rank 0)."""
+    from repro_torch.core.distributed import refuse_ranks
+    from repro_torch.core.superblock import corpus_shape_of, plan_superblocks
+
     corpus = None
     if not (args.corpus_file and os.path.exists(args.corpus_file)):
         corpus = make_corpus(args)
@@ -242,15 +313,18 @@ def main(argv=None):
 
             corpus = load_corpus(args.corpus_file)
         res, dt = run(corpus, cfg, args.device, mode=args.mode)
-        report(res, dt, args.mode)
+        if echo:
+            report(res, dt, args.mode)
         return res
     plan = plan_superblocks(corpus_shape_of(source), cfg, sb)
     if plan.num_superblocks > 1:
+        refuse_ranks("the out-of-core build")
         print(f"out-of-core: {plan.total_records} records > "
               f"{plan.capacity_records}/run -> {plan.num_superblocks} "
               f"superblocks ({sb.store_backend} store backend)")
     res, dt = run(source, cfg, args.device, sb=sb)
-    report(res, dt, args.mode, index_dir=args.index_dir)
+    if echo:
+        report(res, dt, args.mode, index_dir=args.index_dir)
     return res
 
 

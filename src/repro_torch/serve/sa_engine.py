@@ -482,8 +482,10 @@ class SuffixArrayIndex:
         ``spill_dir``, so streamed output lands there directly); the
         returned index serves from that directory.
         """
+        from repro_torch.core.distributed import refuse_ranks
         from repro_torch.core.superblock import build_suffix_array_auto
 
+        refuse_ranks("SuffixArrayIndex.build")
         cfg = cfg or SAConfig()
         sb = sb or SuperblockConfig()
         if index_dir is not None:

@@ -269,11 +269,14 @@ def test_mget_scalar_and_scatter_update_match_repro(cap):
 
 
 def test_rank_store_refuses_more_than_one_shard():
+    """Two shards over one rank (no process group): the exchange refuses a
+    buffer whose bucket count is not the group's size.  Two ranks are
+    tests/test_torch_distributed.py's."""
     spec = store.StoreSpec(num_shards=2, rows_per_shard=4, row_len=1, request_capacity=4)
     pos = torch.arange(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="2 buckets over 1 rank"):
         store.mget_scalar(torch.zeros(4, dtype=torch.int32), pos, pos >= 0, spec)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="2 buckets over 1 rank"):
         store.scatter_update(torch.zeros(4, dtype=torch.int32), pos, pos, pos >= 0, spec)
 
 
