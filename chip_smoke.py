@@ -9,6 +9,8 @@
     python3 chip_smoke.py --resume 50000 26  # phase 11 only, at these sizes
     python3 chip_smoke.py --build-modes 1000000 26  # phase 12 only, at these sizes
     python3 chip_smoke.py --ranks 250000 24 4  # phase 13 only: reads, text, ranks
+    python3 chip_smoke.py --ranks-ooc 50000 4  # phase 14 only: reads, ranks
+    python3 chip_smoke.py --nccl  # on four cards: one NCCL rank a card
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
 each of which fails loudly:
@@ -153,7 +155,28 @@ each of which fails loudly:
    each rank's peak device memory and its bytes through the exchange.  Then
    ``torchrun --nproc-per-node 4 -m repro_torch.launch.sa_build`` at
    ``RANKS_LAUNCH_READS`` reads on the card: exit 0, rank 0 alone printing
-   4 ``per_device_counts`` with nothing dropped or unresolved.
+   4 ``per_device_counts`` with nothing dropped or unresolved;
+14. the out-of-core paths on ``RANKS_D`` gloo ranks on the one card, each
+   between barriers: (a) phase 8's reads cell (S = 4, LCP, kernels, host
+   merge): phase 8's one-rank SA and LCP (digests passed to the ranks);
+   (b) the device merge at ``OOC_RANKS_DEVICE_READS`` reads: its one-rank
+   build's SA and LCP; (c) (a) journaled into an index directory, killed on
+   every rank at the first ``merge:rank`` and resumed: 4 blocks from the
+   journal on every rank, (a)'s result, and the directory's
+   ``suffix_array.npy``, ``lcp.npy`` and ``corpus.sachunk`` those of a
+   one-rank build; (d) ``SuffixArrayIndex.open`` of (c)'s directory on every
+   rank (the memory store): a 4096-seed count batch and an align batch, the
+   one-rank index's answers, ``pattern_search`` launched; (e)
+   ``OOC_RANKS_STREAM_READS`` reads streamed from the chunked store at a
+   quarter of the corpus bytes into an index directory: the in-memory SA,
+   ``peak_resident_bytes`` within the budget on every rank; (f) ``torchrun
+   --nproc-per-node 4 -m repro_torch.launch.sa_build`` at
+   ``OOC_RANKS_LAUNCH_READS`` reads, ``--superblocks 4 --index-dir
+   --resume``: exit 0, then ``repro_torch.launch.serve`` answers a pattern.
+   Every rank's result must be rank 0's; ``merge_path`` and
+   ``window_gather`` launch in (a), ``bucket_hist`` in every block build.
+   Each build's wall (the largest rank's), each rank's peak memory and
+   exchange bytes, and the host's core count.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
@@ -161,7 +184,12 @@ phases 1-2 and then phase 10 alone at those sizes, ``--resume READS LOG2``
 phase 11 alone (against unjournaled builds it makes itself; no result line),
 ``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
 makes itself; no result line), ``--ranks READS LOG2 D`` phase 13 alone at D
-ranks (no result line).
+ranks, ``--ranks-ooc READS D`` phase 14 alone at READS reads on D ranks (no
+result line).  ``--nccl`` (on a machine with four cards, never in the
+one-card run) runs phase 13's reads scheme build and TeraSort and phase 14
+(a) and (c) under ``torchrun --nproc-per-node 4`` with one rank a card,
+where ``sa_build.backend_for`` picks NCCL: each must equal its one-rank
+build (no result line).
 Without CUDA, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
@@ -2323,24 +2351,30 @@ def ranks_worker(rank, d, work):
         dist.destroy_process_group()
 
 
-def spawn_ranks(d, work, timeout=900):
-    """Run ``ranks_worker`` on d processes; every one is stopped on the way
-    out.  Returns each rank's results."""
-    import pickle
-
+def spawn_ranks(d, work, worker=None, timeout=900):
+    """Run ``worker`` (phase 13's ``ranks_worker`` by default) on d
+    processes; every one is stopped on the way out.  Returns each rank's
+    results."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(ranks_worker, args=(d, work), nprocs=d, join=False,
-                             start_method="spawn")
+    ctx = mp.start_processes(worker or ranks_worker, args=(d, work), nprocs=d,
+                             join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"phase 13: {d} ranks not done in {timeout} s")
+                raise TimeoutError(f"{d} ranks not done in {timeout} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
+    return read_ranks(d, work)
+
+
+def read_ranks(d, work):
+    """Each rank's ``rank{rank}.pkl`` in ``work``."""
+    import pickle
+
     out = []
     for rank in range(d):
         with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as f:
@@ -2460,6 +2494,509 @@ def phase_ranks(dev, reads=RANKS_READS, text_log2=RANKS_TEXT_LOG2, d=RANKS_D):
         f"== plain (SA, Footprint, stats), nothing dropped or unresolved")
     launcher_ranks(d, RANKS_LAUNCH_READS)
     return counts
+
+
+# phase 14: the out-of-core, journaled, indexed and streaming builds on
+# RANKS_D gloo ranks on the one card.  (a) and (c) are phase 8's reads cell;
+# the device merge, the streaming build and the launcher run at smaller
+# read counts (the device merge's refiner ranks its tiles collectively;
+# streaming thrashes the chunked cache on every rank at once)
+OOC_RANKS_DEVICE_READS = 5_000
+OOC_RANKS_STREAM_READS = 500
+OOC_RANKS_LAUNCH_READS = 20_000
+OOC_RANKS_SEEDS, OOC_RANKS_SEED_LEN = 4096, 24
+# phase 13's builds under --nccl (one rank a card): the reads scheme build
+# and TeraSort over RANKS_READS reads
+NCCL_INCORE = ("scheme", "terasort")
+
+
+class Killed(Exception):
+    """The simulated crash of phase 14 (c), raised on every rank."""
+
+
+def digest(a) -> str:
+    """sha256 of an integer array's values as int64."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a, np.int64).tobytes()).hexdigest()
+
+
+def file_digests(path, names=("suffix_array.npy", "lcp.npy", "corpus.sachunk")):
+    import hashlib
+
+    out = {}
+    for name in names:
+        h = hashlib.sha256()
+        with open(os.path.join(path, name), "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                h.update(block)
+        out[name] = h.hexdigest()
+    return out
+
+
+def ooc_rank_job(job, work, ranks):
+    """One job of phase 14 on this rank; returns what the parent checks."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.core.superblock as sbmod
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.launch import sa_build
+    from repro_torch.serve.sa_engine import SuffixArrayIndex
+
+    corpus = np.load(os.path.join(work, f"{job['corpus']}.npy"))
+    cfg = sa_build.make_config("base", "cuda")
+    if job["kind"] == "open":
+        seeds = list(np.load(os.path.join(work, "seeds.npy")))
+        idx = SuffixArrayIndex.open(os.path.join(work, job["index"]),
+                                    store_backend="memory", device="cuda")
+        counts = idx.count(seeds)
+        hits = idx.align(seeds)
+        out = dict(counts=digest(np.asarray(counts)),
+                   align=digest(np.array([x for h in hits for p in h for x in p],
+                                         np.int64)),
+                   hits=int(np.asarray(counts).sum()), seeds=len(seeds),
+                   engine_stats=idx.engine.engine_stats())
+        idx.close()
+        return out
+    if job["kind"] in ("scheme", "terasort"):
+        res, _ = sa_build.run(corpus, cfg, "cuda", mode=job["kind"])
+        return dict(sa=digest(res.suffix_array), n=int(res.suffix_array.shape[0]),
+                    stats=stats_without_walls(res.stats))
+    kw = dict(job["sb"])
+    if job.get("index"):
+        kw.update(spill_dir=os.path.join(work, job["index"]), write_manifest=True)
+    sb = SuperblockConfig(**kw)
+    kill = job.get("kill")
+    real = sbmod.pipeline_point
+    if kill:
+        seen = [0]
+
+        def probe(label):
+            real(label)
+            if label == kill[0]:
+                seen[0] += 1
+                if seen[0] == kill[1]:
+                    raise Killed(label)
+
+        sbmod.pipeline_point = probe
+    try:
+        res = sbmod.build_suffix_array_superblock(corpus, cfg=cfg, sb=sb, device="cuda")
+    except Killed:
+        return dict(killed=True)
+    finally:
+        sbmod.pipeline_point = real
+    if kill:
+        raise AssertionError(f"phase 14: {job['name']}: the build passed {kill}")
+    out = dict(sa=digest(res.suffix_array), lcp=digest(res.lcp),
+               n=int(res.suffix_array.shape[0]),
+               footprint=dataclasses.asdict(res.footprint),
+               stats=stats_without_walls(res.stats))
+    if job.get("index"):
+        out["files"] = file_digests(sb.spill_dir)
+    return out
+
+
+def run_rank_jobs(ranks, work, jobs):
+    """Every job of ``jobs`` on this rank, each between two barriers with its
+    launches, peak memory and collective traffic reset just before it and
+    read just after; writes ``rank{rank}.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    for job in jobs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        distributed.reset_traffic()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = ooc_rank_job(job, work, ranks)
+        torch.cuda.synchronize()
+        dist.barrier()
+        res.update(wall=time.perf_counter() - t0, launches=launch_counts(),
+                   peak=torch.cuda.max_memory_allocated(),
+                   traffic=dict(distributed.TRAFFIC))
+        out[job["name"]] = res
+    with open(os.path.join(work, f"rank{ranks.rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def ooc_ranks_worker(rank, d, work):
+    """One gloo rank of phase 14 on the one card (a
+    ``torch.multiprocessing`` spawn target)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import world
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(work, 'rdzv')}",
+                            rank=rank, world_size=d)
+    try:
+        with open(os.path.join(work, "jobs.json")) as f:
+            run_rank_jobs(world(), work, json.load(f))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_rank(work) -> int:
+    """One rank of ``--nccl`` under ``torchrun`` (one rank a card): joins the
+    process group as the launcher does (``sa_build.init_ranks``, which picks
+    NCCL there) and runs the jobs in ``work``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import sa_build
+
+    ranks = sa_build.init_ranks("cuda")
+    try:
+        if ranks.rank == 0:
+            with open(os.path.join(work, "backend.txt"), "w") as f:
+                f.write(dist.get_backend())
+        with open(os.path.join(work, "jobs.json")) as f:
+            run_rank_jobs(ranks, work, json.load(f))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def one_rank_index(dev, work, corpus, sa, lcp):
+    """The one-rank index directory of phase 8's reads cell, as a one-rank
+    out-of-core build writes it (int64 SA and LCP, the corpus serialized
+    from the memory store), and its answers to phase 14's seeds through
+    ``SuffixArrayIndex.open`` on the memory store."""
+    import numpy as np
+
+    from repro_torch.core import index_io
+    from repro_torch.core.store import InMemoryBackend
+    from repro_torch.launch import sa_build
+    from repro_torch.serve.sa_engine import SuffixArrayIndex
+
+    cfg = sa_build.make_config("base", "cuda")
+    path = os.path.join(work, "ix_one_rank")
+    backend = InMemoryBackend(corpus, cfg, device=dev)
+    index_io.save_index(path, cfg, backend, np.asarray(sa, np.int64),
+                        np.asarray(lcp, np.int64))
+    backend.close()
+    seeds = list(np.load(os.path.join(work, "seeds.npy")))
+    idx = SuffixArrayIndex.open(path, store_backend="memory", device=dev)
+    counts = idx.count(seeds)
+    hits = idx.align(seeds)
+    answers = dict(counts=digest(np.asarray(counts)),
+                   align=digest(np.array([x for h in hits for p in h for x in p],
+                                         np.int64)))
+    idx.close()
+    return file_digests(path), answers
+
+
+def write_seeds(work, corpus, m=OOC_RANKS_SEED_LEN, seed=14):
+    """``OOC_RANKS_SEEDS`` alignment seeds: ``m``-token windows of random
+    reads."""
+    import numpy as np
+
+    count = OOC_RANKS_SEEDS
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, corpus.shape[0], count)
+    offs = rng.integers(0, corpus.shape[1] - m, count)
+    seeds = np.stack([corpus[r, o : o + m] for r, o in zip(rows, offs)]).astype(np.int64)
+    np.save(os.path.join(work, "seeds.npy"), seeds)
+
+
+def ooc_jobs(reads_label):
+    """Phase 14's jobs (a)-(e), in order."""
+    s = dict(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True)
+    return [
+        dict(name=f"(a) {reads_label}", kind="superblock", corpus="reads", sb=s),
+        dict(name=f"(b) reads {count_name(OOC_RANKS_DEVICE_READS)} x 200 device merge",
+             kind="superblock", corpus="device_reads", sb=dict(s, merge_backend="device")),
+        dict(name=f"(c) {reads_label} journaled, killed at merge:rank #1",
+             kind="superblock", corpus="reads", sb=dict(s, resume=True), index="ix_c",
+             kill=("merge:rank", 1)),
+        dict(name=f"(c) {reads_label} journaled, resumed", kind="superblock",
+             corpus="reads", sb=dict(s, resume=True), index="ix_c"),
+        dict(name="(d) open (c)'s index, count and align", kind="open", corpus="reads",
+             index="ix_c"),
+        dict(name=f"(e) reads {OOC_RANKS_STREAM_READS} x 200 streaming",
+             kind="superblock", corpus="stream_reads", index="ix_e",
+             sb=dict(s, store_backend="chunked", cache_budget_bytes=0)),
+    ]
+
+
+def check_same_on_ranks(name, r, keys):
+    for i, x in enumerate(r[1:], 1):
+        for k in keys:
+            if x.get(k) != r[0].get(k):
+                raise AssertionError(f"phase 14: {name}: rank {i}'s {k} != rank 0's")
+
+
+def report_ranks(phase, name, r, backend="gloo"):
+    """Log a D-rank run's wall (the largest rank's, barrier to barrier), each
+    rank's peak memory and traffic; returns its launches summed over the
+    ranks."""
+    launched = {k: sum(x["launches"][k] for x in r) for k in r[0]["launches"]}
+    wall = max(x["wall"] for x in r)
+    walls = ", ".join(f"{x['wall']:.3f}" for x in r)
+    n = r[0].get("n")
+    log(f"{phase}: {len(r)} {backend} ranks {name}: {wall:.3f} s wall (largest rank; "
+        f"{walls})"
+        + (f", {n / wall:.0f} suffixes/s" if n else "")
+        + f", peak GiB {[round(x['peak'] / 2**30, 2) for x in r]}, exchange bytes a "
+        f"rank {[x['traffic']['exchange_bytes'] for x in r]} in "
+        f"{r[0]['traffic']['exchanges']} exchanges, gathered bytes a rank "
+        f"{[x['traffic']['gather_bytes'] for x in r]}, launches {launched}")
+    if "stats" in r[0]:
+        log(f"{phase}: {name}: stats {r[0]['stats']}")
+    return launched
+
+
+def launcher_ooc_ranks(d, reads, work):
+    """(f): ``repro_torch.launch.sa_build`` under ``torchrun`` with d ranks,
+    out of core, journaled into an index directory; then
+    ``repro_torch.launch.serve`` finds the first read's first 8 tokens in
+    it."""
+    import ast
+
+    from repro_torch.data.corpus import synth_dna_reads
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    ix = os.path.join(work, "ix_f")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(d), "-m", "repro_torch.launch.sa_build",
+         "--reads", str(reads), "--read-len", str(FULL_READ_LEN), "--superblocks",
+         str(OOC_SUPERBLOCKS), "--index-dir", ix, "--resume"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 14 (f): torchrun exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    stats = [ast.literal_eval(x[len("stats: "):]) for x in lines if x.startswith("stats: ")]
+    if (len(stats) != 1 or stats[0]["dropped"] or stats[0]["unresolved"]
+            or not stats[0]["journaled"] or stats[0]["superblocks"] != OOC_SUPERBLOCKS
+            or not lines[0].startswith("out-of-core: ")):
+        raise AssertionError(f"phase 14 (f): torchrun printed {lines}")
+    pattern = ",".join(map(str, synth_dna_reads(reads, FULL_READ_LEN, seed=0)[0, :8]))
+    serve = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--index-dir", ix,
+         "--pattern", pattern], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=300)
+    answer = [x for x in serve.stdout.splitlines() if x.startswith("  pattern ")]
+    if serve.returncode != 0 or len(answer) != 1 or "count=0" in answer[0]:
+        raise AssertionError(f"phase 14 (f): serve exited {serve.returncode}: "
+                             f"{serve.stdout[-2000:]} {serve.stderr[-2000:]}")
+    log(f"phase 14 (f): torchrun --nproc-per-node {d} repro_torch.launch.sa_build "
+        f"--reads {reads} --superblocks {OOC_SUPERBLOCKS} --index-dir --resume: exit 0 "
+        f"in {dt:.1f} s; {lines[0]}; {[x for x in lines if x.startswith('resume:')]}; "
+        f"then repro_torch.launch.serve:{answer[0]}")
+
+
+def ooc_references(dev, work, reads, ref):
+    """Phase 14's one-rank references, with the corpora and seeds written
+    into ``work``: phase 8's reads cell (``ref`` when it has ``reads``
+    reads, else built here) with its index directory and answers, the
+    device merge's one-rank build and the streaming build's in-memory SA.
+    Returns (the reads cell's label, the expected digests by job tag, the
+    one-rank index files, its answers, the streaming budget)."""
+    import numpy as np
+
+    from repro_torch.config import SuperblockConfig
+    from repro_torch.core.superblock import build_suffix_array_superblock
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.launch import sa_build
+
+    if ref is not None and ref[0].shape[0] == reads:
+        corpus, sa, lcp = ref
+    else:
+        corpus = synth_dna_reads(reads, FULL_READ_LEN, seed=0)
+        sa, lcp = incore_reference(dev, corpus, "phase 14")
+    cfg = sa_build.make_config("base", "cuda")
+    device_reads = synth_dna_reads(OOC_RANKS_DEVICE_READS, FULL_READ_LEN, seed=0)
+    t0 = time.perf_counter()
+    dres = build_suffix_array_superblock(
+        device_reads, cfg=cfg, device=dev,
+        sb=SuperblockConfig(num_superblocks=OOC_SUPERBLOCKS, emit_lcp=True,
+                            merge_backend="device"))
+    log(f"phase 14: one rank, the device merge's reference: "
+        f"{time.perf_counter() - t0:.3f} s")
+    stream_reads = synth_dna_reads(OOC_RANKS_STREAM_READS, FULL_READ_LEN, seed=0)
+    want = {"(a)": (digest(sa), digest(lcp)),
+            "(b)": (digest(dres.suffix_array), digest(dres.lcp)),
+            "(e)": digest(sa_build.run(stream_reads, cfg, "cuda")[0].suffix_array)}
+    for key, c in (("reads", corpus), ("device_reads", device_reads),
+                   ("stream_reads", stream_reads)):
+        np.save(os.path.join(work, f"{key}.npy"), c)
+    write_seeds(work, corpus)
+    one_files, one_answers = one_rank_index(dev, work, corpus, sa, lcp)
+    label = f"reads {count_name(reads)} x {FULL_READ_LEN} out-of-core"
+    # the streaming job's budget: a quarter of its corpus bytes
+    return label, want, one_files, one_answers, stream_reads.size * 4 // 4
+
+
+def free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"the parent holds {torch.cuda.memory_allocated() / 2**20:.1f} MiB on the "
+        f"card before the ranks start")
+
+
+def check_ooc_job(phase, job, r, want, one_files, one_answers, budget, backend="gloo"):
+    """Hold one job's results on every rank to its one-rank reference;
+    returns its launches summed over the ranks."""
+    name = job["name"]
+    check_same_on_ranks(name, r, ("sa", "lcp", "footprint", "stats", "files",
+                                  "counts", "align", "engine_stats", "killed"))
+    launched = report_ranks(phase, name, r, backend)
+    x = r[0]
+    tag = name[:3]
+    if job["kind"] in ("scheme", "terasort"):
+        if x["sa"] != want["scheme"] or x["stats"].get("unresolved"):
+            raise AssertionError(f"{phase}: {name}: SA != the one-rank build's")
+        return launched
+    if job.get("kill"):
+        if not x.get("killed"):
+            raise AssertionError(f"{phase}: {name}: not killed")
+    elif job["kind"] == "open":
+        if (x["counts"], x["align"]) != (one_answers["counts"], one_answers["align"]):
+            raise AssertionError(f"{phase}: {name}: answers != the one-rank index's")
+        if not launched["pattern_search"]:
+            raise AssertionError(f"{phase}: {name}: pattern_search not launched: "
+                                 f"{launched}")
+        log(f"{phase}: {name}: {x['seeds']} seeds, {x['hits']} hits, counts and "
+            f"align == the one-rank index's on every rank; engine_stats "
+            f"{x['engine_stats']}")
+    else:
+        st = x["stats"]
+        if st["dropped"] or st["unresolved"]:
+            raise AssertionError(f"{phase}: {name}: {st}")
+        if tag == "(e)":
+            if x["sa"] != want["(e)"]:
+                raise AssertionError(f"{phase}: {name}: SA != the in-memory build's")
+            if st["peak_resident_bytes"] > budget:
+                raise AssertionError(f"{phase}: {name}: peak_resident_bytes "
+                                     f"{st['peak_resident_bytes']} > {budget}")
+        elif (x["sa"], x["lcp"]) != want["(b)" if tag == "(b)" else "(a)"]:
+            raise AssertionError(f"{phase}: {name}: SA or LCP != the one-rank build's")
+        if tag == "(a)" and not (launched["merge_path"] and launched["window_gather"]):
+            raise AssertionError(f"{phase}: {name}: launches {launched}")
+        if "resumed" in name:
+            if st["journal_hits"] != OOC_SUPERBLOCKS:
+                raise AssertionError(f"{phase}: {name}: journal_hits "
+                                     f"{st['journal_hits']}")
+            if x["files"] != one_files:
+                raise AssertionError(f"{phase}: {name}: index files != the one-rank "
+                                     f"build's")
+    if job["kind"] == "superblock" and "resumed" not in name and not launched[
+            "bucket_hist"]:
+        raise AssertionError(f"{phase}: {name}: bucket_hist not launched: {launched}")
+    return launched
+
+
+def phase_ranks_ooc(dev, reads=OOC_READS, d=RANKS_D, ref=None):
+    """Phase 14 (see the module docstring).  ``ref`` is phase 8's reads cell
+    (corpus, SA, LCP), or None to build it here.  Returns the launches of
+    each run, summed over the ranks."""
+    import tempfile
+
+    log(f"phase 14: host cores {os.cpu_count()}")
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_ooc_") as work:
+        label, want, one_files, one_answers, budget = ooc_references(dev, work, reads,
+                                                                     ref)
+        del ref
+        jobs = ooc_jobs(label)
+        jobs[-1]["sb"]["cache_budget_bytes"] = budget
+        with open(os.path.join(work, "jobs.json"), "w") as f:
+            json.dump(jobs, f)
+        free_card()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(d, work, ooc_ranks_worker)
+        log(f"phase 14: {d} gloo ranks on one card: spawn to exit "
+            f"{time.perf_counter() - t0:.1f} s")
+        for job in jobs:
+            counts[f"{d} ranks {job['name']}"] = check_ooc_job(
+                "phase 14", job, [x[job["name"]] for x in ranks], want, one_files,
+                one_answers, budget)
+        log("phase 14: every D-rank build equals its one-rank build, every rank rank "
+            "0's; (c) adopted every block on every rank and wrote the one-rank "
+            "build's index files; (d) answered as the one-rank index")
+        launcher_ooc_ranks(d, OOC_RANKS_LAUNCH_READS, work)
+    return counts
+
+
+def phase_nccl(dev, reads=RANKS_READS, ooc_reads=OOC_READS, d=4):
+    """``--nccl``: phase 13's reads scheme build and TeraSort, and phase 14
+    (a) and (c), under ``torchrun --nproc-per-node d`` with one rank a card,
+    where ``sa_build.backend_for`` picks NCCL.  Each must equal its one-rank
+    build."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.launch import sa_build
+
+    import torch
+
+    if torch.cuda.device_count() < d:
+        raise AssertionError(f"--nccl: {torch.cuda.device_count()} cards, {d} needed")
+    log(f"--nccl: host cores {os.cpu_count()}, {torch.cuda.device_count()} cards")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as work:
+        label, want, one_files, one_answers, budget = ooc_references(dev, work,
+                                                                     ooc_reads, None)
+        rank_reads = synth_dna_reads(reads, FULL_READ_LEN, seed=0)
+        res, dt = sa_build.run(rank_reads, sa_build.make_config("base", "cuda"), "cuda")
+        want["scheme"] = digest(res.suffix_array)
+        log(f"--nccl: reads {count_name(reads)} x 200 one rank (the reference): "
+            f"{dt:.3f} s")
+        del res
+        np.save(os.path.join(work, "rank_reads.npy"), rank_reads)
+        jobs = ([dict(name=f"reads {count_name(reads)} x 200 {mode}", kind=mode,
+                      corpus="rank_reads") for mode in NCCL_INCORE]
+                + [j for j in ooc_jobs(label) if j["name"][:3] in ("(a)", "(c)")])
+        with open(os.path.join(work, "jobs.json"), "w") as f:
+            json.dump(jobs, f)
+        free_card()
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(d), os.path.join(HERE, "chip_smoke.py"),
+             "--nccl-rank", work],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=1500)
+        log(f"--nccl: torchrun --nproc-per-node {d}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"--nccl: torchrun exited {proc.returncode}: "
+                                 f"{proc.stdout[-3000:]} {proc.stderr[-6000:]}")
+        with open(os.path.join(work, "backend.txt")) as f:
+            backend = f.read().strip()
+        choice = [x for x in proc.stderr.splitlines() if x.startswith("process group:")]
+        log(f"--nccl: backend {backend}; {choice}")
+        if backend != "nccl":
+            raise AssertionError(f"--nccl: the ranks joined over {backend}")
+        ranks = read_ranks(d, work)
+        for job in jobs:
+            check_ooc_job("--nccl", job, [x[job["name"]] for x in ranks], want,
+                          one_files, one_answers, budget, backend)
+        log("--nccl: every build over NCCL equals its one-rank build, every rank "
+            "rank 0's; (c) adopted every block and wrote the one-rank build's "
+            "index files")
 
 
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
@@ -2613,7 +3150,10 @@ def main(argv) -> int:
     READS reads and a 2^LOG2-token text; ``--resume READS LOG2`` and
     ``--build-modes READS LOG2``: phases 1-2 and then phase 11 or 12 at
     those sizes; ``--ranks READS LOG2 D``: phases 1-2 and then phase 13 at
-    those sizes on D ranks.  None of these prints a result line."""
+    those sizes on D ranks; ``--ranks-ooc READS D``: phases 1-2 and then
+    phase 14 at READS reads on D ranks; ``--nccl``: phases 1-2 and then
+    ``phase_nccl`` on four cards.  None of these prints a result line
+    (``--nccl-rank`` is one rank of ``--nccl``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2623,6 +3163,9 @@ def main(argv) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.data.corpus import synth_dna_reads, synth_token_corpus
     from repro_torch.kernels import _build
+
+    if argv[:1] == ["--nccl-rank"] and len(argv) == 2:
+        return nccl_rank(argv[1])  # one rank of --nccl, under torchrun
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -2679,6 +3222,16 @@ def main(argv) -> int:
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv[:1] == ["--ranks-ooc"] and len(argv) == 3:
+        t0 = time.perf_counter()
+        phase_ranks_ooc(dev, int(argv[1]), int(argv[2]))
+        log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if argv == ["--nccl"]:
+        phase_nccl(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv[:1] == ["--ranks"] and len(argv) == 4:
         t0 = time.perf_counter()
         phase_ranks(dev, int(argv[1]), int(argv[2]), int(argv[3]))
@@ -2726,10 +3279,14 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     counts.update(phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp))
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
-    del reads_corpus, text_tokens, incore_sa, incore_lcp, ooc_ref, cells
+    del reads_corpus, text_tokens, incore_sa, incore_lcp, cells
     t0 = time.perf_counter()
     counts.update(phase_ranks(dev))
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(phase_ranks_ooc(dev, ref=ooc_ref))
+    del ooc_ref
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",

@@ -8,7 +8,9 @@ when no process group is initialized) no collective runs: ``exchange`` is
 the identity and ``sample_splitters`` finds no splitters.  At D ranks the
 collectives go over ``torch.distributed``, each in one function here:
 ``exchange`` (``lax.all_to_all``), ``all_gather`` (``lax.all_gather``),
-``psum`` and ``pmax``.  They take tensors where they lie: over NCCL on the
+``psum`` and ``pmax``, and the out-of-core build's two for what rank 0 owns:
+``broadcast_object`` (rank 0's decision, such as a resume's adoption or
+refusal) and ``barrier`` (rank 0's files written before the others read).  They take tensors where they lie: over NCCL on the
 ranks' cards, over gloo on the CPU or on the card, whose tensors gloo stages
 through host memory itself (one card's ranks share it over gloo: NCCL takes
 one rank a card).  The capacity-padded bucket scatter keeps its overflow
@@ -59,14 +61,30 @@ def world(group: Optional[Any] = None) -> Ranks:
     return Ranks(group, dist.get_rank(group), dist.get_world_size(group))
 
 
-def refuse_ranks(what: str) -> None:
-    """Raise ``NotImplementedError`` when ``what`` is asked for on more than
-    one rank of the initialized world: the paths that wait for ROADMAP.md
-    item 10b."""
-    ranks = world()
-    if ranks.size > 1:
-        raise NotImplementedError(
-            f"{what} at world size {ranks.size} (> 1) is ROADMAP.md item 10b")
+def broadcast_object(obj: Any, ranks: Ranks = SINGLE, src: int = 0) -> Any:
+    """Rank ``src``'s ``obj`` (a small picklable record) on every rank:
+    ``obj`` itself at one rank.  What the other ranks pass is ignored.  Over
+    NCCL the pickled bytes travel on the rank's current card, which
+    ``launch.sa_build.init_ranks`` sets."""
+    if ranks.size == 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(ranks.group, src)
+                               if ranks.group is not None else src,
+                               group=ranks.group)
+    return box[0]
+
+
+def barrier(ranks: Ranks = SINGLE) -> None:
+    """Wait for every rank: what rank 0 wrote before its barrier is there
+    for the others after theirs.  Nothing at one rank."""
+    if ranks.size == 1:
+        return
+    import torch.distributed as dist
+
+    dist.barrier(group=ranks.group)
 
 
 def bucket_scatter(

@@ -66,6 +66,7 @@ class CorruptionError(Exception):
     def __init__(self, artifact: str, detail: str = "",
                  path: Optional[str] = None):
         self.artifact = artifact
+        self.detail = detail
         self.path = path
         msg = f"corrupt artifact: {artifact}"
         if path:
@@ -73,6 +74,10 @@ class CorruptionError(Exception):
         if detail:
             msg += f": {detail}"
         super().__init__(msg)
+
+    def __reduce__(self):
+        # pickled with its own fields (a refusal broadcast to other ranks)
+        return type(self), (self.artifact, self.detail, self.path)
 
 
 class TransientError(RuntimeError):

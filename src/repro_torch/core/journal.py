@@ -77,14 +77,12 @@ class BuildJournal:
     """Writer and replayer of the build journal.  Main-thread only: a
     block's record is appended once its spill write is observed done
     (``PipelineTask.done()``), so no locking is needed (salint
-    SAL008/SAL009)."""
+    SAL008/SAL009).  At D ranks only rank 0 opens it: the build's
+    ``spill_dir`` is rank 0's."""
 
     VERSION = 1
 
     def __init__(self, path: str):
-        from repro_torch.core.distributed import refuse_ranks
-
-        refuse_ranks("the build journal")
         self.path = path
         self._f = None
         self._unsynced = 0

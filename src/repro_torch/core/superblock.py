@@ -73,7 +73,15 @@ import numpy as np
 import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
-from repro_torch.core.distributed import lex_order, refuse_ranks, run_starts
+from repro_torch.core.distributed import (
+    SINGLE,
+    Ranks,
+    barrier,
+    broadcast_object,
+    lex_order,
+    run_starts,
+    world,
+)
 from repro_torch.core.integrity import CorruptionError, crc32_array, publish_file
 from repro_torch.core.journal import JOURNAL_NAME, BuildJournal, verify_spilled_run
 from repro_torch.core.lcp import lcp_from_sa, pairwise_lcp
@@ -270,6 +278,12 @@ class _Scratch:
         self.last_spill = (p, None)
         return np.load(p, mmap_mode="r")
 
+    @staticmethod
+    def map_run(path: str) -> np.ndarray:
+        """A read-only memmap of a run that rank 0 spilled and verified (a
+        resumed build's adopted block on the other ranks)."""
+        return np.load(path, mmap_mode="r")
+
     def drain_spills(self) -> None:
         """Wait for in-flight spill writes (re-raises a worker failure)."""
         pipeline_point("spill:drain")
@@ -282,7 +296,8 @@ class _Scratch:
 
 
 def _resolve_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
-                     scratch: Optional[_Scratch], device) -> StoreBackend:
+                     scratch: Optional[_Scratch], device,
+                     ranks: Ranks = SINGLE) -> StoreBackend:
     """The store backend the whole construction streams through
     (``repro.core.superblock._resolve_backend``).
 
@@ -297,7 +312,10 @@ def _resolve_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
 
     The chunked backend's LRU gets **half** of ``cache_budget_bytes``; the
     other half covers the merge frontier, so ``peak_resident_bytes``
-    (cache + frontier) stays under the budget as a whole.
+    (cache + frontier) stays under the budget as a whole.  At D ranks each
+    rank opens a backend of its own at the full budget; rank 0 alone writes
+    the copy in ``spill_dir``, and the other ranks open it after a barrier
+    (a copy in scratch is each rank's own).
     """
     if isinstance(corpus, StoreBackend):
         return corpus
@@ -322,9 +340,12 @@ def _resolve_backend(corpus, cfg: SAConfig, sb: SuperblockConfig,
     assert scratch is not None
     if sb.write_manifest and sb.spill_dir:
         path = os.path.join(sb.spill_dir, "corpus.sachunk")
+        if ranks.rank == 0:
+            write_chunked_corpus(corpus, path, chunk_items=chunk_items)
+        barrier(ranks)
     else:
         path = scratch.path("corpus.sachunk")
-    write_chunked_corpus(corpus, path, chunk_items=chunk_items)
+        write_chunked_corpus(corpus, path, chunk_items=chunk_items)
     return ChunkedFileBackend(path, cfg, cache_budget_bytes=budget // 2,
                               device=device)
 
@@ -1199,6 +1220,7 @@ def build_suffix_array_superblock(
     cfg: SAConfig = SAConfig(),
     sb: SuperblockConfig = SuperblockConfig(),
     device=None,
+    group=None,
 ) -> SAResult:
     """Out-of-core SA build: per-superblock pipeline runs plus the merge;
     one block runs in core, with the post-hoc LCP under ``sb.emit_lcp``.
@@ -1214,8 +1236,18 @@ def build_suffix_array_superblock(
     directory is ``spill_dir/scratch``, a killed attempt's orphaned
     temporary files are swept first, and a failed build keeps its scratch
     directory and journal for the next attempt.
+
+    ``group``: the ``torch.distributed`` process group (``None``: the
+    initialized world, one rank without one).  Every rank passes the whole
+    corpus, builds every block collectively, runs the whole merge on the
+    same inputs and returns the same result.  Rank 0 owns ``spill_dir``
+    (shared by the ranks): it alone writes the journal, the scratch runs,
+    the outputs and the index files there; the other ranks keep their
+    scratch in a private temporary directory, removed when they return or
+    fail, and read what rank 0 wrote only after a barrier.
     """
-    refuse_ranks("the out-of-core and streaming builds")
+    ranks = world(group)
+    owner = ranks.rank == 0
     # a scratch directory whenever the build streams, and always when it is
     # journaled: block runs then spill on every backend, so a resumed build
     # has something durable to adopt
@@ -1227,26 +1259,35 @@ def build_suffix_array_superblock(
         or (not isinstance(corpus, StoreBackend) and sb.store_backend == "chunked")
         or journaled
     )
-    if sb.spill_dir is not None:
-        os.makedirs(sb.spill_dir, exist_ok=True)
-    if journaled:
-        # a killed attempt cannot clean up after itself: sweep its orphaned
-        # publish temporaries (the journal and the scratch runs survive)
-        for orphan in os.listdir(sb.spill_dir):
-            if orphan.endswith((".tmp", ".tmp.npy")):
-                with contextlib.suppress(OSError):
-                    os.unlink(os.path.join(sb.spill_dir, orphan))
-        scratch = _Scratch(sb.spill_dir,
-                           stable_dir=os.path.join(sb.spill_dir, "scratch"))
-    else:
-        scratch = _Scratch(sb.spill_dir) if needs_scratch else None
+    private = None
+    if not owner and (needs_scratch or sb.spill_dir is not None):
+        private = tempfile.mkdtemp(prefix=f"sa_rank{ranks.rank}_")
+    scratch = None
     backend: Optional[StoreBackend] = None
     owns_backend = True
     ok = False
     try:
+        if private is not None:
+            scratch = _Scratch(private) if needs_scratch else None
+        elif journaled:
+            os.makedirs(sb.spill_dir, exist_ok=True)
+            # a killed attempt cannot clean up after itself: sweep its
+            # orphaned publish temporaries (the journal and the scratch runs
+            # survive)
+            for orphan in os.listdir(sb.spill_dir):
+                if orphan.endswith((".tmp", ".tmp.npy")):
+                    with contextlib.suppress(OSError):
+                        os.unlink(os.path.join(sb.spill_dir, orphan))
+            scratch = _Scratch(sb.spill_dir,
+                               stable_dir=os.path.join(sb.spill_dir, "scratch"))
+        else:
+            if sb.spill_dir is not None:
+                os.makedirs(sb.spill_dir, exist_ok=True)
+            scratch = _Scratch(sb.spill_dir) if needs_scratch else None
         if isinstance(corpus, StoreBackend):
             device = corpus.device
-        backend = _resolve_backend(corpus, cfg, sb, scratch, resolve_device(device))
+        backend = _resolve_backend(corpus, cfg, sb, scratch, resolve_device(device),
+                                   ranks)
         owns_backend = backend is not corpus  # decided before any wrapping
         if sb.store_retries > 0:
             backend = RetryingBackend(backend, retries=sb.store_retries,
@@ -1254,9 +1295,9 @@ def build_suffix_array_superblock(
         if sanitize_enabled(sb):
             backend = SanitizingBackend(backend)
         res = _build_superblock(backend, lengths, cfg, sb, scratch,
-                                original_corpus=corpus)
+                                original_corpus=corpus, ranks=ranks,
+                                out_dir=sb.spill_dir if owner else private)
         ok = True
-        return res
     finally:
         if backend is not None and owns_backend:
             backend.close()
@@ -1265,16 +1306,41 @@ def build_suffix_array_superblock(
                 scratch.journal.close()  # flushed; kept on disk for a resume
             if ok or not journaled:
                 scratch.cleanup()
+        if private is not None:
+            shutil.rmtree(private, ignore_errors=True)
+    if sb.spill_dir is not None:
+        barrier(ranks)  # rank 0's files are complete before any rank returns
+    return res
+
+
+def _rank0_decides(ranks: Ranks, decide: Callable):
+    """``decide()`` run on rank 0 alone, and its value, or the exception it
+    raised, on every rank: the ranks act on one decision, and a refusal
+    raises the same exception everywhere."""
+    if ranks.size == 1:
+        return decide()
+    out = None
+    if ranks.rank == 0:
+        try:
+            out = ("value", decide())
+        except Exception as e:  # broadcast, then raised on every rank
+            out = ("raise", e)
+    kind, val = broadcast_object(out, ranks)
+    if kind == "raise":
+        raise val
+    return val
 
 
 def _build_superblock(backend: StoreBackend, lengths, cfg: SAConfig,
                       sb: SuperblockConfig, scratch: Optional[_Scratch],
-                      original_corpus) -> SAResult:
+                      original_corpus, ranks: Ranks = SINGLE,
+                      out_dir: Optional[str] = None) -> SAResult:
     """Executor lifecycle around the phased build: ``sb.pipeline_depth >=
     1`` attaches one background worker shared by the staging prefetch, the
     spill and output writes and the merge's refill prefetch; it is drained
     and joined on success and on failure alike, and a failure unlinks the
-    output sink's temporary memmaps."""
+    output sink's temporary memmaps.  ``out_dir`` takes the outputs'
+    memmaps: ``spill_dir`` on rank 0, a private directory on the others."""
     pipe: Optional[PipelineExecutor] = None
     if sb.pipeline_depth > 0:
         pipe = PipelineExecutor(depth=sb.pipeline_depth, name="sa-pipeline")
@@ -1283,7 +1349,8 @@ def _build_superblock(backend: StoreBackend, lengths, cfg: SAConfig,
     sinks: List[_OutputSink] = []
     try:
         res = _build_superblock_phases(backend, lengths, cfg, sb, scratch,
-                                       original_corpus, pipe, sinks)
+                                       original_corpus, pipe, sinks, ranks,
+                                       out_dir)
     except BaseException:
         for s in sinks:
             with contextlib.suppress(BaseException):
@@ -1310,6 +1377,8 @@ def _build_superblock_phases(
     original_corpus,
     pipe: Optional[PipelineExecutor],
     sinks: List[_OutputSink],
+    ranks: Ranks = SINGLE,
+    out_dir: Optional[str] = None,
 ) -> SAResult:
     if sb.write_manifest and not sb.spill_dir:
         raise ValueError(
@@ -1322,7 +1391,7 @@ def _build_superblock_phases(
         store = CorpusStore(None, cfg, backend=backend,
                             request_capacity=sb.request_capacity)
         res = build_suffix_array(store.stage_items(0, backend.n), lengths=lengths,
-                                 cfg=cfg, device=dev)
+                                 cfg=cfg, device=dev, group=ranks.group)
         # no ordered emission to piggyback on: the LCP is computed post hoc
         # from the finished SA, and the index directory is written wholesale
         if sb.emit_lcp and res.lcp is None:
@@ -1330,7 +1399,7 @@ def _build_superblock_phases(
             res.lcp = lcp_from_sa(store, res.suffix_array, batch=batch)
             res.stats["emit_lcp"] = True
         if sb.write_manifest:
-            _write_index_manifest(res, backend, cfg, sb, scratch)
+            _write_index_manifest(res, backend, cfg, sb, scratch, ranks)
         return res
     if sb.merge_backend not in ("host", "device"):
         raise ValueError(f"unknown merge_backend: {sb.merge_backend!r}")
@@ -1349,40 +1418,58 @@ def _build_superblock_phases(
     # journal beside the stable scratch directory.  Block runs are journaled
     # as they become durable; a re-entered build replays the journal and
     # adopts every verified block.  The merge is always redone from the runs.
+    # At D ranks rank 0 alone keeps the journal and decides the adoption;
+    # the others adopt the same blocks from rank 0's verified runs.
+    journaled = sb.resume and sb.spill_dir is not None and scratch is not None
     jr: Optional[BuildJournal] = None
     resumed: dict = {}
     journal_hits = 0
-    if sb.resume and sb.spill_dir is not None and scratch is not None:
+    if journaled:
         jpath = os.path.join(sb.spill_dir, JOURNAL_NAME)
-        fp_rec = dict(backend_fingerprint(backend))
-        fp_rec.update(superblocks=int(plan.num_superblocks),
-                      capacity=int(plan.capacity_records),
-                      merge_algorithm=sb.merge_algorithm,
-                      emit_lcp=bool(sb.emit_lcp))
-        records = BuildJournal.load(jpath)  # CorruptionError on a bad interior
-        if records:
-            if records[0].get("t") != "begin":
-                raise CorruptionError(
-                    "build journal", detail="first record is not 'begin'",
-                    path=jpath)
-            if records[0].get("fp") != fp_rec:
-                raise ValueError(
-                    "resume refused: the journal in spill_dir belongs to a "
-                    "different build (corpus/plan fingerprint mismatch) — "
-                    "remove it or use a fresh spill_dir")
+        runs_seen: dict = {}
+
+        def adoption():
+            """(whether the journal had records, {block: (run path, its
+            record)}), every run verified; raises a refusal."""
+            fp_rec = dict(backend_fingerprint(backend))
+            fp_rec.update(superblocks=int(plan.num_superblocks),
+                          capacity=int(plan.capacity_records),
+                          merge_algorithm=sb.merge_algorithm,
+                          emit_lcp=bool(sb.emit_lcp))
+            records = BuildJournal.load(jpath)  # CorruptionError on a bad interior
+            if records:
+                if records[0].get("t") != "begin":
+                    raise CorruptionError(
+                        "build journal", detail="first record is not 'begin'",
+                        path=jpath)
+                if records[0].get("fp") != fp_rec:
+                    raise ValueError(
+                        "resume refused: the journal in spill_dir belongs to a "
+                        "different build (corpus/plan fingerprint mismatch) — "
+                        "remove it or use a fresh spill_dir")
+            adopted = {}
             for r in records:
                 if r.get("t") != "block":
                     continue
                 run_path = scratch.path(r["run"])
                 if not os.path.exists(run_path):
                     continue  # its spill never became durable: rebuild it
-                mm = verify_spilled_run(run_path, r["run_crc"],
-                                        f"spilled run {r['run']}")
-                resumed[int(r["i"])] = (mm, r)
-        jr = BuildJournal(jpath).open()
-        scratch.journal = jr  # the lifecycle wrapper closes it on exit
-        if not records:
-            jr.append({"t": "begin", "v": BuildJournal.VERSION, "fp": fp_rec})
+                runs_seen[run_path] = verify_spilled_run(
+                    run_path, r["run_crc"], f"spilled run {r['run']}")
+                adopted[int(r["i"])] = (run_path, r)
+            return fp_rec, bool(records), adopted
+
+        fp_rec, had_records, adopted = _rank0_decides(ranks, adoption)
+        for i, (run_path, r) in adopted.items():
+            # rank 0's verified memmap; a read-only map of it elsewhere
+            mm = runs_seen.get(run_path)
+            resumed[i] = (_Scratch.map_run(run_path) if mm is None else mm, r)
+        barrier(ranks)  # mapped on every rank before rank 0 may retire them
+        if ranks.rank == 0:
+            jr = BuildJournal(jpath).open()
+            scratch.journal = jr  # the lifecycle wrapper closes it on exit
+            if not had_records:
+                jr.append({"t": "begin", "v": BuildJournal.VERSION, "fp": fp_rec})
 
     store = CorpusStore(
         None, cfg, backend=backend,
@@ -1403,7 +1490,7 @@ def _build_superblock_phases(
         """A sorted run as the merge takes it: streaming or journaled,
         spilled to disk (a run that already is a spill's memmap stays as it
         is); else a tensor on the store's device."""
-        if streaming or jr is not None:
+        if streaming or journaled:
             if run.shape[0] and not isinstance(run, np.memmap):
                 return scratch.spill_run(run)
             return run
@@ -1494,11 +1581,12 @@ def _build_superblock_phases(
         t0 = time.perf_counter()
         pipeline_point("build:block")
         if plan.text_mode:
-            res = build_suffix_array(block, cfg=cfg, device=dev)
+            res = build_suffix_array(block, cfg=cfg, device=dev, group=ranks.group)
             sa_b = res.suffix_array + lo
         else:
             lens_b = None if lengths is None else np.asarray(lengths)[lo:hi]
-            res = build_suffix_array(block, lengths=lens_b, cfg=cfg, device=dev)
+            res = build_suffix_array(block, lengths=lens_b, cfg=cfg, device=dev,
+                                     group=ranks.group)
             sa_b = res.suffix_array + (np.int64(lo) << plan.stride_bits)
         run = keep_run(sa_b)
         local_sas.append(run)
@@ -1541,16 +1629,16 @@ def _build_superblock_phases(
     pre_requests = store.requests
     total_suffixes = int(sum(r.shape[0] for r in local_sas))
     out_path = lcp_path = pair_lcp = None
-    if sb.spill_dir is not None:
-        out_path = os.path.join(sb.spill_dir, "suffix_array.npy")
+    if out_dir is not None:
+        out_path = os.path.join(out_dir, "suffix_array.npy")
     if sb.emit_lcp:
         # emit order is final order: each emitted suffix's LCP is one
         # adjacent compare against the previous one, served by the store
         def pair_lcp(a, b):
             return pairwise_lcp(store, a, b)
 
-        if sb.spill_dir is not None:
-            lcp_path = os.path.join(sb.spill_dir, "lcp.npy")
+        if out_dir is not None:
+            lcp_path = os.path.join(out_dir, "lcp.npy")
     sink = _OutputSink(total_suffixes, dev, pair_lcp=pair_lcp, executor=pipe,
                        memmap_path=out_path, lcp_path=lcp_path)
     sinks.append(sink)
@@ -1569,7 +1657,7 @@ def _build_superblock_phases(
         refiner = DeviceRefiner(
             original_corpus if isinstance(original_corpus, np.ndarray)
             else store.stage_items(0, backend.n),
-            cfg, lengths=lengths, device=dev,
+            cfg, lengths=lengths, device=dev, group=ranks.group,
         )
         refine = refiner.refine
     else:
@@ -1682,7 +1770,7 @@ def _build_superblock_phases(
         "spilled_bytes": scratch.spilled_bytes if scratch else 0,
         "emit_lcp": bool(sb.emit_lcp),
         "sanitized": sanitize_enabled(sb),
-        "journaled": jr is not None,
+        "journaled": journaled,
         "journal_hits": int(journal_hits),
         "store_retry_attempts": int(getattr(backend, "retry_attempts", 0)),
         "store_retried_calls": int(getattr(backend, "retried_calls", 0)),
@@ -1693,7 +1781,7 @@ def _build_superblock_phases(
     }
     res = SAResult(suffix_array=sa, footprint=fp, stats=stats, lcp=sink.lcp)
     if sb.write_manifest:
-        _write_index_manifest(res, backend, cfg, sb, scratch)
+        _write_index_manifest(res, backend, cfg, sb, scratch, ranks)
     if jr is not None:
         # the terminal record, then the journal retires: the build is
         # complete and its artifacts are published
@@ -1703,14 +1791,20 @@ def _build_superblock_phases(
 
 
 def _write_index_manifest(res: SAResult, backend: StoreBackend, cfg: SAConfig,
-                          sb: SuperblockConfig, scratch: Optional[_Scratch]) -> None:
+                          sb: SuperblockConfig, scratch: Optional[_Scratch],
+                          ranks: Ranks = SINGLE) -> None:
     """Finalize ``sb.spill_dir`` as a reopenable index directory
     (``repro.core.superblock._write_index_manifest``): the corpus is
     referenced in place when the backend serves a persistent chunked file
     (the caller's own, or the copy ``_resolve_backend`` placed in
     ``spill_dir``); a scratch-resident or in-memory corpus is serialized
-    into the directory, since scratch dies with the build."""
+    into the directory, since scratch dies with the build.  At D ranks
+    rank 0 writes the directory; every rank records it in its stats."""
     from repro_torch.core import index_io
+
+    if ranks.rank != 0:
+        res.stats["index_dir"] = sb.spill_dir
+        return
 
     corpus_ref = None
     p = getattr(backend, "path", None)
@@ -1733,12 +1827,14 @@ def build_suffix_array_auto(
     cfg: SAConfig = SAConfig(),
     sb: Optional[SuperblockConfig] = None,
     device=None,
+    group=None,
 ) -> SAResult:
     """Single-pass build when the record set fits one run (the launcher's
     policy); a plan of more blocks, an LCP array or a manifest goes through
     :func:`build_suffix_array_superblock`, as in ``repro``.  ``corpus`` is
     an array, a chunked corpus file path or a :class:`StoreBackend`;
-    ``device`` as for :func:`repro_torch.core.pipeline.build_suffix_array`."""
+    ``device`` and ``group`` as for
+    :func:`repro_torch.core.pipeline.build_suffix_array`."""
     sb = sb or SuperblockConfig()
     plan = plan_superblocks(corpus_shape_of(corpus), cfg, sb)
     if plan.num_superblocks <= 1 and not (sb.emit_lcp or sb.write_manifest):
@@ -1748,6 +1844,7 @@ def build_suffix_array_auto(
             from repro_torch.data import chunk_store
 
             corpus = chunk_store.load_corpus(os.fspath(corpus))
-        return build_suffix_array(corpus, lengths=lengths, cfg=cfg, device=device)
+        return build_suffix_array(corpus, lengths=lengths, cfg=cfg, device=device,
+                                  group=group)
     return build_suffix_array_superblock(corpus, lengths=lengths, cfg=cfg, sb=sb,
-                                         device=device)
+                                         device=device, group=group)

@@ -44,8 +44,10 @@ Each rank joins the process group from the environment (``init_ranks``:
 NCCL where every local rank has a card of its own, gloo otherwise, the
 choice printed to stderr), builds its shard in any ``--mode``, and rank 0
 prints the lines ``repro.launch.sa_build`` prints on as many devices.  The
-out-of-core and streaming builds, ``--corpus-file`` and ``--index-dir`` (with
-``--resume``) refuse more than one rank: ROADMAP.md item 10b.
+out-of-core, streaming, journaled and indexed builds run on every rank too:
+rank 0 owns ``--index-dir`` and a fresh ``--corpus-file`` (it alone writes
+them; the other ranks read them after a barrier), so the ranks of one build
+share that directory: one node, or a shared filesystem.
 """
 from __future__ import annotations
 
@@ -274,38 +276,36 @@ def report(res, dt: float, mode: str = "scheme", index_dir=None) -> None:
 def main(argv=None):
     import torch.distributed as dist
 
-    from repro_torch.core.distributed import refuse_ranks
-
     args = parse_args(argv)
     joined = not dist.is_initialized()
     ranks = init_ranks(args.device)
     joined = joined and dist.is_initialized()  # left as a caller set it up
     try:
-        if args.index_dir:
-            refuse_ranks("--index-dir")
-        if args.corpus_file:
-            refuse_ranks("--corpus-file")
-        return _build(args, echo=ranks.rank == 0)
+        return _build(args, ranks)
     finally:
         if joined:
             dist.destroy_process_group()
 
 
-def _build(args, echo: bool):
-    """Synthesize or load the corpus, build it in ``args.mode``, and print
-    the report when ``echo`` (rank 0)."""
-    from repro_torch.core.distributed import refuse_ranks
+def _build(args, ranks):
+    """Synthesize or load the corpus, build it in ``args.mode`` on
+    ``ranks``, and print the report on rank 0."""
+    from repro_torch.core.distributed import barrier, broadcast_object
     from repro_torch.core.superblock import corpus_shape_of, plan_superblocks
 
-    corpus = None
-    if not (args.corpus_file and os.path.exists(args.corpus_file)):
-        corpus = make_corpus(args)
+    echo = ranks.rank == 0
+    fresh = not (args.corpus_file and os.path.exists(args.corpus_file))
+    if args.corpus_file:  # rank 0's answer, taken before it writes the file
+        fresh = broadcast_object(fresh, ranks)
+    corpus = make_corpus(args) if fresh else None
     cfg = make_config(args.packing, args.device)
     sb = make_superblock_config(args)
     source = corpus
     if args.corpus_file:
-        if corpus is not None:  # fresh path: serialize once, then stream
-            write_corpus_file(corpus, args)
+        if fresh:  # serialize once on rank 0, then every rank streams it
+            if echo:
+                write_corpus_file(corpus, args)
+            barrier(ranks)
         source = args.corpus_file
     if args.mode != "scheme":
         if corpus is None:  # the in-core modes load an existing corpus file
@@ -317,8 +317,7 @@ def _build(args, echo: bool):
             report(res, dt, args.mode)
         return res
     plan = plan_superblocks(corpus_shape_of(source), cfg, sb)
-    if plan.num_superblocks > 1:
-        refuse_ranks("the out-of-core build")
+    if plan.num_superblocks > 1 and echo:
         print(f"out-of-core: {plan.total_records} records > "
               f"{plan.capacity_records}/run -> {plan.num_superblocks} "
               f"superblocks ({sb.store_backend} store backend)")

@@ -469,6 +469,7 @@ class SuffixArrayIndex:
         index_dir: Optional[str] = None,
         emit_lcp: bool = True,
         device=None,
+        group=None,
         **engine_kw,
     ) -> "SuffixArrayIndex":
         """Build (``build_suffix_array_auto``) and wrap for querying.
@@ -481,11 +482,15 @@ class SuffixArrayIndex:
         persists the index during the build (it doubles as the superblock
         ``spill_dir``, so streamed output lands there directly); the
         returned index serves from that directory.
+
+        ``group``: the process group to build on (``None``: the initialized
+        world, one rank without one).  Every rank builds collectively and
+        gets an index of its own that answers alone.  With ``index_dir``
+        rank 0 writes the directory and every rank opens it once the build
+        has returned (it ends on a barrier).
         """
-        from repro_torch.core.distributed import refuse_ranks
         from repro_torch.core.superblock import build_suffix_array_auto
 
-        refuse_ranks("SuffixArrayIndex.build")
         cfg = cfg or SAConfig()
         sb = sb or SuperblockConfig()
         if index_dir is not None:
@@ -497,7 +502,7 @@ class SuffixArrayIndex:
             device = corpus.device
         device = resolve_device(device)
         res = build_suffix_array_auto(corpus, lengths=lengths, cfg=cfg, sb=sb,
-                                      device=device)
+                                      device=device, group=group)
         if index_dir is not None:
             idx = cls.open(
                 index_dir,

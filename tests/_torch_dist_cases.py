@@ -194,11 +194,10 @@ def _port_case(name, use_pallas, ranks):
     return summary(build_suffix_array(data, lengths, cfg=cfg, device="cpu"))
 
 
-def port_rank(rank, d, out_dir, calls):
+def port_rank(rank, d, out_dir):
     """One gloo rank of ``d`` (a ``torch.multiprocessing`` spawn target):
-    runs every case with use_pallas off and on, and ``calls``, a list of
-    ``(key, module, function)`` named in this module (the guards); writes
-    ``rank{rank}.pkl``.  The bucket_hist dispatcher is counted."""
+    runs every case with use_pallas off and on; writes ``rank{rank}.pkl``.
+    The bucket_hist dispatcher is counted."""
     import torch
     import torch.distributed as dist
 
@@ -219,17 +218,11 @@ def port_rank(rank, d, out_dir, calls):
     try:
         ranks = world()
         results = {}
-        for name in (CASES if not calls else ()):
+        for name in CASES:
             for use_pallas in (False, True):
                 del hist_calls[:]
                 results[name, use_pallas] = _port_case(name, use_pallas, ranks)
                 results[name, use_pallas, "bucket_hist calls"] = len(hist_calls)
-        for key, fn in calls:
-            try:
-                globals()[fn]()
-                results[key] = "returned"
-            except NotImplementedError as e:
-                results[key] = f"NotImplementedError: {e}"
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
     finally:
@@ -238,7 +231,7 @@ def port_rank(rank, d, out_dir, calls):
 
 
 # ---------------------------------------------------------------------------
-# the paths that wait for ROADMAP.md item 10b, called inside a rank
+# the out-of-core, journaled and indexed paths, called in one process
 # ---------------------------------------------------------------------------
 
 
@@ -246,47 +239,33 @@ def _reads():
     return corpus("reads")[0][:20]
 
 
-def guard_superblock():
+def run_superblock():
     from repro_torch.config import SAConfig, SuperblockConfig
     from repro_torch.core.superblock import build_suffix_array_superblock
 
-    build_suffix_array_superblock(_reads(), cfg=SAConfig(**K2), device="cpu",
-                                  sb=SuperblockConfig(num_superblocks=2))
+    return build_suffix_array_superblock(_reads(), cfg=SAConfig(**K2), device="cpu",
+                                         sb=SuperblockConfig(num_superblocks=2))
 
 
-def guard_auto_out_of_core():
+def run_auto_out_of_core():
     from repro_torch.config import SAConfig, SuperblockConfig
     from repro_torch.core.superblock import build_suffix_array_auto
 
-    build_suffix_array_auto(_reads(), cfg=SAConfig(**K2), device="cpu",
-                            sb=SuperblockConfig(num_superblocks=2))
+    return build_suffix_array_auto(_reads(), cfg=SAConfig(**K2), device="cpu",
+                                   sb=SuperblockConfig(num_superblocks=2))
 
 
-def guard_journal():
+def run_journal():
     import tempfile
 
     from repro_torch.core.journal import BuildJournal
 
     with tempfile.TemporaryDirectory() as tmp:
-        BuildJournal(os.path.join(tmp, "journal.jsonl"))
+        return BuildJournal(os.path.join(tmp, "journal.jsonl"))
 
 
-def guard_index_dir():
-    import tempfile
-
-    from repro_torch.launch import sa_build
-
-    with tempfile.TemporaryDirectory() as tmp:
-        sa_build.main(["--device", "cpu", "--reads", "20", "--read-len", "12",
-                       "--index-dir", os.path.join(tmp, "ix")])
-
-
-def guard_index_build():
+def run_index_build():
     from repro_torch import SuffixArrayIndex
     from repro_torch.config import SAConfig
 
-    SuffixArrayIndex.build(_reads(), cfg=SAConfig(**K2), device="cpu")
-
-
-GUARDS = ("guard_superblock", "guard_auto_out_of_core", "guard_journal",
-          "guard_index_dir", "guard_index_build")
+    return SuffixArrayIndex.build(_reads(), cfg=SAConfig(**K2), device="cpu")

@@ -11,8 +11,8 @@ versions, ``bucket_hist``'s among them).  The suffix array, every
 result equal to rank 0's.  The cases are ``tests/test_sa_distributed.py``'s
 8-device builds at 3 and 4 devices, the rank store with a tight capacity, a
 fetch capacity that forces retries, a shuffle capacity that drops, and
-``tests/test_refiner.py``'s skewed-tie refinement.  Then the item-10b guards
-inside two ranks, and the partition's routing through ``bucket_hist``.
+``tests/test_refiner.py``'s skewed-tie refinement.  Then the out-of-core
+paths at one rank, and the partition's routing through ``bucket_hist``.
 """
 import os
 import pickle
@@ -36,11 +36,11 @@ TESTS = os.path.join(REPO, "tests")
 SPAWN_TIMEOUT = 300
 
 
-def spawn_ranks(d, out_dir, calls=()):
+def spawn_ranks(d, out_dir):
     """Run ``cases.port_rank`` on d gloo ranks; returns each rank's results."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(cases.port_rank, args=(d, str(out_dir), list(calls)),
+    ctx = mp.start_processes(cases.port_rank, args=(d, str(out_dir)),
                              nprocs=d, join=False, start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT
     try:
@@ -134,25 +134,17 @@ def test_kernel_path_partitions_through_bucket_hist(both, name):
         assert res[name, False, "bucket_hist calls"] == 0
 
 
-@pytest.fixture(scope="module")
-def guards(tmp_path_factory):
-    out = tmp_path_factory.mktemp("guards")
-    return spawn_ranks(2, out, [(g, g) for g in cases.GUARDS])
-
-
-@pytest.mark.parametrize("guard", cases.GUARDS)
-def test_item_10b_paths_refuse_more_than_one_rank(guards, guard):
-    for res in guards:
-        assert res[guard].startswith("NotImplementedError"), res[guard]
-        assert "item 10b" in res[guard] and "world size 2" in res[guard]
-
-
-def test_item_10b_paths_run_at_one_rank(tmp_path):
-    """Without a process group the same calls build (the D = 1 paths)."""
-    cases.guard_superblock()
-    cases.guard_auto_out_of_core()
-    cases.guard_journal()
-    cases.guard_index_build()
+def test_out_of_core_paths_run_at_one_rank():
+    """Without a process group the out-of-core, journaled and indexed paths
+    build on the single-rank handle (their D-rank runs are
+    ``tests/test_torch_distributed_ooc.py`` and ``_index.py``)."""
+    reads = cases._reads()
+    oracle = naive_sa_reads(reads)
+    for res in (cases.run_superblock(), cases.run_auto_out_of_core()):
+        np.testing.assert_array_equal(res.suffix_array, oracle)
+        assert res.stats["superblocks"] == 2
+    assert cases.run_journal().appended == 0
+    np.testing.assert_array_equal(cases.run_index_build().sa, oracle)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

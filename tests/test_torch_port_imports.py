@@ -51,10 +51,14 @@ SLICE_MODULES = [
     "repro_torch.serve",
     "repro_torch.serve.sa_engine",
 ]
+EXAMPLES = ["torch_quickstart", "torch_sa_build", "torch_dedup_corpus"]
 
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    examples = os.path.join(REPO, "examples")
+    out.extend(os.path.join(examples, f) for f in os.listdir(examples)
+               if f.startswith("torch_") and f.endswith(".py"))
     for dirpath, _dirs, files in os.walk(PORT):
         out.extend(os.path.join(dirpath, f) for f in files if f.endswith(".py"))
     return sorted(out)
@@ -63,7 +67,7 @@ def _port_files():
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE_MODULES!r}:\n"
+        f"for m in {SLICE_MODULES + EXAMPLES!r}:\n"
         "    importlib.import_module(m)\n"
         "import repro_torch\n"
         "repro_torch.SAConfig, repro_torch.build_suffix_array_auto\n"
@@ -74,7 +78,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "assert not bad, bad\n"
         "print('clean')\n"
     )
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), os.path.join(REPO, "examples")]))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
