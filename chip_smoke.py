@@ -10,6 +10,7 @@
     python3 chip_smoke.py --build-modes 1000000 26  # phase 12 only, at these sizes
     python3 chip_smoke.py --ranks 250000 24 4  # phase 13 only: reads, text, ranks
     python3 chip_smoke.py --ranks-ooc 50000 4  # phase 14 only: reads, ranks
+    python3 chip_smoke.py --lm  # phase 15 only: LM serving
     python3 chip_smoke.py --nccl  # on four cards: one NCCL rank a card
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
@@ -176,7 +177,28 @@ each of which fails loudly:
    Every rank's result must be rank 0's; ``merge_path`` and
    ``window_gather`` launch in (a), ``bucket_hist`` in every block build.
    Each build's wall (the largest rank's), each rank's peak memory and
-   exchange bytes, and the host's core count.
+   exchange bytes, and the host's core count;
+15. LM serving on the card (``repro_torch.models``, ``serve.engine``,
+   ``launch.lm_serve``; no SA kernel may launch): (a) ``LM_ARCH``
+   (gemma3-1b: 26 layers, d_model 1152, vocab 262144) in bfloat16 through
+   ``lm_serve.serve``: batch 4, 1024-token prompts (past the local layers'
+   512-token window), a 2048-position cache, 32 greedy decode steps: the
+   prefill wall, decode tokens/s, peak memory, and one decode step
+   profiled (device busy share, device time by kind, launches) beside its
+   byte bound; (b) the same arch in float32 (TF32 off): prefill of 600
+   tokens then one decode step against the forward over 601, and
+   ``decode_step_windowed`` on ring caches built from the prefill's cache
+   against ``decode_step``, within ``LM_TOL``/``LM_DECODE_TOL`` of the
+   logit scale; (c) ``ServeEngine`` on (b)'s model: 8 requests of 16-64
+   prompt tokens over 4 slots, 16 new tokens each: every request retires
+   at the step ``schedule_steps`` gives, and every token is the
+   teacher-forced forward's argmax within the decode tolerance; (d) every
+   other full config one card holds (``LM_OTHERS``; mixtral-8x7b is left
+   out and named), bfloat16 drawn on the card: a 2 x 256 prefill (frame or
+   patch embeddings for the embeddings-mode archs) and 8 decode steps, with
+   finite logits, walls and peak; (e) the nine tiny configs in float32,
+   the card against the CPU on the same weights (forward, prefill, decode,
+   loss).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
@@ -184,8 +206,8 @@ phases 1-2 and then phase 10 alone at those sizes, ``--resume READS LOG2``
 phase 11 alone (against unjournaled builds it makes itself; no result line),
 ``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
 makes itself; no result line), ``--ranks READS LOG2 D`` phase 13 alone at D
-ranks, ``--ranks-ooc READS D`` phase 14 alone at READS reads on D ranks (no
-result line).  ``--nccl`` (on a machine with four cards, never in the
+ranks, ``--ranks-ooc READS D`` phase 14 alone at READS reads on D ranks,
+``--lm`` phase 15 alone (no result line).  ``--nccl`` (on a machine with four cards, never in the
 one-card run) runs phase 13's reads scheme build and TeraSort and phase 14
 (a) and (c) under ``torchrun --nproc-per-node 4`` with one rank a card,
 where ``sa_build.backend_for`` picks NCCL: each must equal its one-rank
@@ -1096,6 +1118,8 @@ KERNEL_CLASSES = (  # substring of a kernel's name -> what it belongs to
     ("prefix_pack", "prefix_pack"), ("window_gather", "window_gather"),
     ("pattern_search", "pattern_search"), ("pattern_cmp", "pattern_cmp"),
     ("merge_path", "merge_path"),
+    ("gemm", "matmul"), ("gemv", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
+    ("xmma", "matmul"), ("softmax", "softmax"),
     ("gather", "gather"),
     ("RadixSort", "sort"), ("radix", "sort"), ("sort", "sort"),
     ("scan", "scan"), ("scatter", "scatter"), ("index", "index"),
@@ -2999,6 +3023,277 @@ def phase_nccl(dev, reads=RANKS_READS, ooc_reads=OOC_READS, d=4):
             "index files")
 
 
+# phase 15: LM serving on the card.  (a) LM_ARCH at full width in bf16
+# through repro_torch.launch.lm_serve's path, the prompt longer than the
+# local layers' 512-token window; (b) LM_ARCH in float32 at full width:
+# prefill + one decode step against the forward over the longer sequence,
+# and the windowed decode against the full one; (c) ServeEngine on (b)'s
+# model; (d) every other full config one card holds, bf16; (e) the tiny
+# configs in float32, card against the CPU
+LM_ARCH = "gemma3-1b"
+LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_GEN = 4, 1024, 2048, 32
+LM_CHECK_BATCH, LM_CHECK_LEN, LM_CHECK_MAX_SEQ = 2, 600, 640
+LM_ENGINE_REQS, LM_ENGINE_SLOTS, LM_ENGINE_NEW, LM_ENGINE_PROMPTS = 8, 4, 16, (16, 64)
+LM_OTHERS = ("granite-moe-3b-a800m", "hymba-1.5b", "minicpm-2b", "xlstm-125m",
+             "musicgen-large", "internvl2-2b", "granite-20b", "gemma3-27b")
+LM_LEFT_OUT = {"mixtral-8x7b": "46.7 B parameters are 87 GiB in bf16, more than "
+                               "one card's 80 GB"}
+LM_OTHER_BATCH, LM_OTHER_PROMPT, LM_OTHER_GEN = 2, 256, 8
+LM_TINY = ("tiny-gemma3", "tiny-granite", "tiny-minicpm", "tiny-mixtral",
+           "tiny-granite-moe", "tiny-hymba", "tiny-xlstm", "tiny-musicgen",
+           "tiny-internvl2")
+# float32 tolerances on the card (TF32 off for matmuls and cuDNN): rtol, and
+# atol scaled by max(1, max |reference|), as the CPU tests hold the port to
+# repro: 2e-4 for logits over the same sequence, 2e-3 for a decode step
+LM_TOL, LM_DECODE_TOL = 2e-4, 2e-3
+
+
+def lm_close(name, got, want, tol):
+    """Max |got - want| (float64 on the host); raises past rtol = ``tol``,
+    atol = ``tol`` x max(1, max |want|)."""
+    import numpy as np
+
+    got = got.detach().double().cpu().numpy()
+    want = want.detach().double().cpu().numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or np.any(np.abs(got - want) > tol * (scale + np.abs(want))):
+        raise AssertionError(f"phase 15: {name}: max |err| {err} past {tol} "
+                             f"(scale {scale:.3f})")
+    return err, scale
+
+
+def ring_caches(cfg, cache, length, max_seq):
+    """The windowed decode's ring caches holding what a full cache holds for
+    positions below ``length`` (slot = position mod the layer's window)."""
+    import torch
+
+    out = {}
+    for i in range(cfg.num_layers):
+        w = min(cfg.attention.window_for_layer(i, max_seq), max_seq)
+        pos = torch.arange(max(0, length - w), length, device=cache["k"].device)
+        layer = {}
+        for kv in ("k", "v"):
+            ring = torch.zeros((cache[kv].shape[1], w, *cache[kv].shape[3:]),
+                               dtype=cache[kv].dtype, device=cache[kv].device)
+            ring[:, pos % w] = cache[kv][i][:, pos]
+            layer[kv] = ring
+        out[f"layer_{i:02d}"] = layer
+    return out
+
+
+def lm_step_profile(model, params, cache, pos, tok):
+    """One decode step under the profiler: (wall ms, device ms, kernel
+    launches, device time by kind)."""
+    dt, ms, launches = profiled(lambda: model.decode_step(params, cache, tok, pos))
+    return dt * 1e3, sum(ms.values()), sum(launches.values()), by_kind(ms)
+
+
+def phase_lm(dev):
+    """Phase 15 (see the module docstring).  Returns the SA kernels'
+    launches over the phase (none may launch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model, params_from_reference
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.serve.engine import Request, ServeEngine, schedule_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    gib = 2.0 ** 30
+
+    # (a) full width, bf16, through the launcher's path
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = lm_serve.serve(LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_SEQ, device=dev,
+                         log=lambda m: log(f"phase 15: (a) {m}"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(rep["last"].float()).all() or rep["sample"].shape != (LM_BATCH, LM_GEN):
+        raise AssertionError("phase 15: (a) non-finite logits or a short sample")
+    model, params, cache, pos = rep["model"], rep["params"], rep["cache"], rep["pos"]
+    tok = torch.argmax(rep["last"], dim=-1).to(torch.int32)[:, None]
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    bound_ms = 1e3 * (weight_bytes + cache_bytes) / PEAK_BYTES_PER_S
+    step_ms, busy_ms, launches, kinds = lm_step_profile(model, params, cache, pos, tok)
+    log(f"phase 15: (a) {LM_ARCH} bf16 {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {model.num_params()} params: prefill "
+        f"{LM_BATCH}x{LM_PROMPT} {rep['prefill_s']:.4f} s, decode {LM_GEN} steps "
+        f"{rep['decode_s']:.4f} s ({rep['tok_s']:.1f} tok/s batched, "
+        f"{1e3 * rep['decode_s'] / LM_GEN:.2f} ms a step), peak {peak / gib:.2f} GiB, "
+        f"wall {wall:.1f} s")
+    log(f"phase 15: (a) one decode step profiled: wall {step_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / step_ms:.1f} %), {launches} kernel launches; "
+        f"byte bound {bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of weights + "
+        f"{cache_bytes / 1e9:.3f} GB of cache at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    log(f"  by kind: {kinds}")
+    del rep, model, params, cache, pos, tok
+
+    # (b) full width, float32: prefill + decode against the forward; the
+    # windowed decode against the full one
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg32)
+    params = model.init(torch.Generator(dev).manual_seed(1), device=dev)
+    rng = np.random.default_rng(15)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (LM_CHECK_BATCH, LM_CHECK_LEN + 1)),
+                           dtype=torch.int32, device=dev)
+    s = LM_CHECK_LEN
+    full = model.forward(params, tokens=toks)
+    logits, cache = model.prefill(params, tokens=toks[:, :s], max_seq=LM_CHECK_MAX_SEQ)
+    errs = {"prefill": lm_close("(b) prefill", logits[:, -1], full[:, s - 1], LM_TOL)}
+    del logits
+    ring = ring_caches(cfg32, cache, s, LM_CHECK_MAX_SEQ)
+    posb = torch.full((LM_CHECK_BATCH,), s, dtype=torch.int32, device=dev)
+    ld, _ = model.decode_step(params, cache, toks[:, s:s + 1], posb)
+    errs["decode"] = lm_close("(b) decode", ld[:, 0], full[:, s], LM_DECODE_TOL)
+    lw, _ = transformer.decode_step_windowed(cfg32, params, ring, toks[:, s:s + 1], posb)
+    errs["windowed"] = lm_close("(b) windowed", lw[:, 0], ld[:, 0], LM_DECODE_TOL)
+    log(f"phase 15: (b) {LM_ARCH} float32 (TF32 off), {LM_CHECK_BATCH}x{s} prompt past the "
+        f"{cfg.attention.sliding_window}-token window: max |err| (logit scale) prefill vs "
+        f"forward {errs['prefill'][0]:.3e} ({errs['prefill'][1]:.2f}), decode vs forward "
+        f"{errs['decode'][0]:.3e} ({errs['decode'][1]:.2f}), windowed ring vs full cache "
+        f"{errs['windowed'][0]:.3e}; tolerances {LM_TOL} / {LM_DECODE_TOL} x scale")
+    del full, ld, lw, cache, ring
+
+    # (c) the engine on (b)'s model: each request retires when its lengths
+    # say, and its greedy tokens are the teacher-forced forward's argmax
+    lo, hi = LM_ENGINE_PROMPTS
+    lens = [int(n) for n in rng.integers(lo, hi + 1, LM_ENGINE_REQS)]
+    eng = ServeEngine(model, params, batch_slots=LM_ENGINE_SLOTS, max_seq=128, device=dev)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                    max_new=LM_ENGINE_NEW) for i, n in enumerate(lens)]
+    for r in reqs:
+        eng.submit(r)
+    retired = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        alive = eng.step()
+        retired.update((r.rid, eng.steps) for r in reqs if r.done and r.rid not in retired)
+        if not alive and not eng.queue:
+            break
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want = schedule_steps(lens, [LM_ENGINE_NEW] * LM_ENGINE_REQS, LM_ENGINE_SLOTS)
+    if [retired.get(i) for i in range(LM_ENGINE_REQS)] != want:
+        raise AssertionError(f"phase 15: (c) retire steps {retired} != {want}")
+    worst = 0.0
+    for r in reqs:
+        seq = torch.as_tensor([r.prompt + r.generated], dtype=torch.int32, device=dev)
+        lg = model.forward(params, tokens=seq)[0, len(r.prompt) - 1:-1].double()
+        chosen = torch.take_along_dim(
+            lg, torch.as_tensor(r.generated, device=dev)[:, None], dim=1)[:, 0]
+        gap = float((lg.max(dim=1).values - chosen).max())
+        scale = max(1.0, float(lg.abs().max()))
+        if len(r.generated) != LM_ENGINE_NEW or gap > LM_DECODE_TOL * scale:
+            raise AssertionError(f"phase 15: (c) request {r.rid}: {len(r.generated)} "
+                                 f"tokens, chosen logit {gap} below the forward's max")
+        worst = max(worst, gap / scale)
+    log(f"phase 15: (c) ServeEngine {LM_ARCH} float32: {LM_ENGINE_REQS} requests of "
+        f"{lens} prompt tokens over {LM_ENGINE_SLOTS} slots, {LM_ENGINE_NEW} new each: "
+        f"{eng.steps} steps in {dt:.3f} s ({1e3 * dt / eng.steps:.2f} ms a step), every "
+        f"request retired at the step its lengths fix {want}; every token the forward's "
+        f"argmax within {worst:.2e} of the logit scale")
+    del model, params, eng
+
+    # (d) the other families, bf16, each drawn directly on the card
+    for name in LM_OTHERS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ocfg = get_arch(name)
+        model = Model(ocfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        orng = np.random.default_rng(0)
+        if ocfg.input_mode == "embeddings":
+            inp = {"embeds": torch.as_tensor(
+                orng.normal(size=(LM_OTHER_BATCH, LM_OTHER_PROMPT, ocfg.d_model)),
+                dtype=torch.bfloat16, device=dev)}
+        else:
+            inp = {"tokens": torch.as_tensor(
+                orng.integers(1, ocfg.vocab_size, (LM_OTHER_BATCH, LM_OTHER_PROMPT)),
+                dtype=torch.int32, device=dev)}
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, **inp, max_seq=LM_OTHER_PROMPT + LM_OTHER_GEN)
+        last = logits[:, -1]
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        posd = torch.full((LM_OTHER_BATCH,), LM_OTHER_PROMPT, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(LM_OTHER_GEN):
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            ld, cache = model.decode_step(params, cache, nxt, posd)
+            last = ld[:, 0]
+            finite &= bool(torch.isfinite(last).all())
+            posd = posd + 1
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if not finite:
+            raise AssertionError(f"phase 15: (d) {name}: non-finite logits")
+        log(f"phase 15: (d) {name} bf16 ({model.num_params() / 1e9:.3f} B params, "
+            f"{ocfg.input_mode}): init {t_init:.3f} s, prefill {LM_OTHER_BATCH}x"
+            f"{LM_OTHER_PROMPT} {t_pre:.4f} s, {LM_OTHER_GEN} decode steps {t_dec:.4f} s "
+            f"({LM_OTHER_BATCH * LM_OTHER_GEN / t_dec:.1f} tok/s), peak {peak / gib:.2f} GiB, "
+            f"logits finite")
+        del model, params, cache, last, ld, inp
+    for name, why in LM_LEFT_OUT.items():
+        log(f"phase 15: (d) {name} left out: {why}")
+
+    # (e) the tiny configs, float32: the card against the CPU on one set of
+    # weights
+    torch.cuda.empty_cache()
+    worst = {}
+    for name in LM_TINY:
+        tcfg = dataclasses.replace(get_arch(name), param_dtype="float32",
+                                   compute_dtype="float32")
+        cpu_model, card_model = Model(tcfg), Model(tcfg)
+        cpu = cpu_model.init(torch.Generator().manual_seed(0), device="cpu")
+        card = params_from_reference(card_model, tree_map(lambda t: t.numpy(), cpu),
+                                     device=dev)
+        trng = np.random.default_rng(0)
+        toks = trng.integers(0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+        if tcfg.input_mode == "embeddings":
+            inp = {"embeds": trng.normal(size=(2, 16, tcfg.d_model)).astype(np.float32)}
+        else:
+            inp = {"tokens": toks}
+        pre = {k: v[:, :8] for k, v in inp.items()}
+        errs = []
+        for mdl, p in ((cpu_model, cpu), (card_model, card)):
+            fw = mdl.forward(p, **inp)
+            pl, c = mdl.prefill(p, **pre, max_seq=12)
+            dl, _ = mdl.decode_step(p, c, toks[:, 8:9], np.full((2,), 8, np.int32))
+            errs.append((fw, pl, dl, mdl.loss(p, {**inp, "labels": toks})[0]))
+        (fc, pc, dc, lc), (fg, pg, dg, lg_) = errs
+        worst[name] = max(lm_close(f"(e) {name} forward", fg, fc, LM_TOL)[0],
+                          lm_close(f"(e) {name} prefill", pg, pc, LM_TOL)[0],
+                          lm_close(f"(e) {name} decode", dg, dc, LM_DECODE_TOL)[0],
+                          lm_close(f"(e) {name} loss", lg_, lc, LM_TOL)[0])
+    log("phase 15: (e) tiny configs float32, card vs CPU on the same weights, max |err| "
+        "over forward, prefill, decode and loss: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    launched = launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"phase 15: an SA kernel launched: {launched}")
+    return {f"lm {LM_ARCH} serve": launched}
+
+
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
@@ -3151,9 +3446,10 @@ def main(argv) -> int:
     ``--build-modes READS LOG2``: phases 1-2 and then phase 11 or 12 at
     those sizes; ``--ranks READS LOG2 D``: phases 1-2 and then phase 13 at
     those sizes on D ranks; ``--ranks-ooc READS D``: phases 1-2 and then
-    phase 14 at READS reads on D ranks; ``--nccl``: phases 1-2 and then
-    ``phase_nccl`` on four cards.  None of these prints a result line
-    (``--nccl-rank`` is one rank of ``--nccl``)."""
+    phase 14 at READS reads on D ranks; ``--lm``: phases 1-2 and then
+    phase 15; ``--nccl``: phases 1-2 and then ``phase_nccl`` on four cards.
+    None of these prints a result line (``--nccl-rank`` is one rank of
+    ``--nccl``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3232,6 +3528,12 @@ def main(argv) -> int:
         phase_nccl(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv == ["--lm"]:
+        t0 = time.perf_counter()
+        phase_lm(dev)
+        log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv[:1] == ["--ranks"] and len(argv) == 4:
         t0 = time.perf_counter()
         phase_ranks(dev, int(argv[1]), int(argv[2]), int(argv[3]))
@@ -3287,6 +3589,9 @@ def main(argv) -> int:
     counts.update(phase_ranks_ooc(dev, ref=ooc_ref))
     del ooc_ref
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(phase_lm(dev))
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",

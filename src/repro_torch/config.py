@@ -1,15 +1,179 @@
-"""Suffix-array configuration of the port.
+"""Configuration of the port: the suffix-array pipeline and the LM archs.
 
 Copies of ``repro.config.SAConfig`` and ``repro.config.SuperblockConfig``
 with the same fields, defaults and derived values
 (``tests/test_torch_config.py`` holds them together).
 ``use_pallas`` keeps its name: in the port it selects the hand-written
 CUDA kernels instead of their plain PyTorch versions.
+
+The LM side: copies of ``AttentionConfig``, ``MoEConfig``, ``SSMConfig`` and
+``ArchConfig`` with their derived methods, and the ``--arch`` registry
+(``register_arch``, ``get_arch``, ``list_archs``), which imports
+``repro_torch.configs`` on first use as ``repro``'s imports
+``repro.configs`` (``tests/test_torch_lm_configs.py`` holds every
+registered config to ``repro``'s field for field).  ``scan_layers`` and
+``remat`` are kept for the configs' sake; the port runs its layers eagerly
+and ignores both.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import Callable, Dict, List, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    """Attention block configuration (GQA/MQA/SWA/local:global)."""
+
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    # Sliding window size for *local* layers. ``None`` => full attention.
+    sliding_window: Optional[int] = None
+    # Pattern of local (``L``) / global (``G``) layers, tiled over depth.
+    # ``"G"`` => all-global; gemma3 uses ``"LLLLLG"`` (5:1).
+    layer_pattern: str = "G"
+    # Soft cap on attention logits (gemma-style); 0 disables.
+    logit_softcap: float = 0.0
+    qk_norm: bool = False
+
+    def window_for_layer(self, layer: int, seq_len: int) -> int:
+        """Effective window for ``layer`` (full == seq_len)."""
+        kind = self.layer_pattern[layer % len(self.layer_pattern)]
+        if kind == "L" and self.sliding_window is not None:
+            return min(self.sliding_window, seq_len)
+        return seq_len
+
+    def is_global_layer(self, layer: int) -> bool:
+        return self.layer_pattern[layer % len(self.layer_pattern)] == "G" or (
+            self.sliding_window is None
+        )
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts configuration (None on dense archs)."""
+
+    num_experts: int
+    top_k: int
+    expert_ffn_dim: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # "tp" / "ep": how a mesh would shard the experts (kept for the
+    # configs; one card shards nothing)
+    sharding: str = "tp"
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """State-space / recurrent block configuration (xLSTM, Mamba-style)."""
+
+    state_dim: int = 16
+    conv_width: int = 4
+    expand: int = 2
+    # xlstm: pattern of "m" (mLSTM) / "s" (sLSTM) blocks tiled over depth.
+    block_pattern: str = "m"
+    chunk_size: int = 64
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """One assigned architecture."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig]
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # tokens | embeddings (audio/vlm frontends feed precomputed embeddings)
+    input_mode: str = "tokens"
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    act: str = "silu"  # silu => SwiGLU, gelu => plain GeLU MLP
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # compile policies of the JAX package; the port accepts and ignores them
+    scan_layers: bool = True
+    remat: str = "nothing_saveable"  # none | nothing_saveable | dots_saveable
+    # sequence-chunked cross entropy: never materialize full (B,S,V) logits
+    loss_chunk: int = 0  # 0 = off
+    # flash-style online-softmax attention over KV blocks (no S x S scores)
+    attn_chunk: int = 0  # 0 = off
+    # decode caches sized to each layer's window (local:global aware)
+    window_decode_cache: bool = False
+    # source provenance string from the assignment table
+    source: str = ""
+    notes: str = ""
+
+    def qkv_dims(self) -> Tuple[int, int]:
+        a = self.attention
+        return a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+
+    def param_count(self) -> int:
+        """Total parameter count (used for 6ND model-flops)."""
+        d, l, v = self.d_model, self.num_layers, self.vocab_size
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        per_layer = 0
+        if self.attention is not None:
+            q, kv = self.qkv_dims()
+            per_layer += d * q + 2 * d * kv + q * d  # q,k,v,o
+        if self.moe is not None:
+            per_layer += d * self.moe.num_experts  # router
+            per_layer += self.moe.num_experts * 3 * d * self.moe.expert_ffn_dim
+        elif self.d_ff > 0:
+            n_mat = 3 if self.act == "silu" else 2
+            per_layer += n_mat * d * self.d_ff
+        if self.ssm is not None:
+            s = self.ssm
+            inner = s.expand * d
+            # in_proj (x and z), dt/B/C projections, out_proj, conv
+            per_layer += d * 2 * inner + inner * (2 * s.state_dim + 1) + inner * d
+            per_layer += inner * s.conv_width
+        per_layer += 2 * d  # norms
+        return total + l * per_layer
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (m.num_experts - m.top_k) * 3 * self.d_model * m.expert_ffn_dim
+        return self.param_count() - self.num_layers * inactive
+
+
+_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn: Callable[[], ArchConfig]):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def get_arch(name: str) -> ArchConfig:
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+def list_archs(include_tiny: bool = False) -> List[str]:
+    import repro_torch.configs  # noqa: F401
+
+    names = sorted(_REGISTRY)
+    if not include_tiny:
+        names = [n for n in names if not n.startswith("tiny-")]
+    return names
 
 
 @dataclass(frozen=True)

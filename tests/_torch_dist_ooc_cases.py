@@ -68,6 +68,13 @@ GROUPS = {
     "index": ["stream-index", "sanitize", "kill-last-block", "kill-first-rank",
               "refused-fingerprint", "refused-corrupt", "index", "index-dir"],
 }
+# The cases whose repro result with use_pallas on equals, field for field, its
+# result with it off (both were run and compared at D = 3 and 4): repro runs
+# them once, with use_pallas off, and the port's runs with it off and on are
+# both held to that result.  The others' results carry use_pallas (the index
+# directory's name and the manifest's sa_config), so repro runs them both ways.
+PALLAS_INVARIANT = {*GROUPS["ooc"], "sanitize", "refused-fingerprint",
+                    "refused-corrupt", "index"}
 INDEX_FILES = ("suffix_array.npy", "lcp.npy", "corpus.sachunk")
 WALLS = ("t_stage_s", "t_build_s", "t_merge_s")
 
@@ -288,12 +295,14 @@ def run_case(pkg, name, use_pallas, base, copies, rank=0, barrier=lambda: None):
 
 
 def repro_main(out_path, group, base, copies):
-    """``group``'s cases with use_pallas off and on, in repro."""
+    """``group``'s cases with use_pallas off and on, in repro (once, off, for
+    the cases of ``PALLAS_INVARIANT``)."""
     pkg = Package("repro")
     results = {}
     for name in GROUPS[group]:
-        for use_pallas in (False, True):
-            results[name, use_pallas] = run_case(pkg, name, use_pallas, base, copies)
+        results[name, False] = run_case(pkg, name, False, base, copies)
+        results[name, True] = (results[name, False] if name in PALLAS_INVARIANT
+                               else run_case(pkg, name, True, base, copies))
     with open(out_path, "wb") as f:
         pickle.dump(results, f)
 

@@ -3,7 +3,8 @@
 
 For D in {3, 4}, with ``use_pallas`` off and on, the cases of
 ``tests/_torch_dist_ooc_cases.py``'s ``index`` group (the 101 x 17 reads,
-S = 3, the LCP):
+S = 3, the LCP; ``repro`` runs the cases of ``PALLAS_INVARIANT`` once, since
+its results are the same either way):
 
 * streaming from the chunked store at a quarter of the corpus bytes into an
   index directory: rank 0 writes it, and its files equal repro's byte for

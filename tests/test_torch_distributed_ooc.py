@@ -5,7 +5,8 @@ For D in {3, 4}, ``tests/_torch_dist_ooc_cases.py``'s merge matrix: the
 101 x 17 reads and the 1000-token text, S = 3 with the LCP, merged by
 ``merge_path`` with the host and with the device merge, by ``kway`` and by
 ``rerank``, each with ``use_pallas`` off and on (on the CPU, "on" is the
-dispatchers' plain versions).  Phase 2 builds every block on the D ranks,
+dispatchers' plain versions; ``repro``, whose results are the same either
+way for these cases, runs each once: ``cases.PALLAS_INVARIANT``).  Phase 2 builds every block on the D ranks,
 and phase 3 runs on every rank.  The suffix array, the LCP array, every
 ``Footprint`` field and every stats entry but the walls (each block's
 ``per_device_counts`` among them) must equal repro's, and every rank's

@@ -48,10 +48,21 @@ SLICE_MODULES = [
     "repro_torch.kernels.bitonic_sort",
     "repro_torch.launch.sa_build",
     "repro_torch.launch.serve",
+    "repro_torch.launch.lm_serve",
     "repro_torch.serve",
     "repro_torch.serve.sa_engine",
+    "repro_torch.serve.engine",
+    "repro_torch.configs",
+    "repro_torch.configs.suffix_array",
+    "repro_torch.models",
+    "repro_torch.models.params",
+    "repro_torch.models.layers",
+    "repro_torch.models.ssm",
+    "repro_torch.models.transformer",
+    "repro_torch.models.xlstm",
+    "repro_torch.models.model",
 ]
-EXAMPLES = ["torch_quickstart", "torch_sa_build", "torch_dedup_corpus"]
+EXAMPLES = ["torch_quickstart", "torch_sa_build", "torch_dedup_corpus", "torch_serve_lm"]
 
 
 def _port_files():
@@ -73,6 +84,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "repro_torch.SAConfig, repro_torch.build_suffix_array_auto\n"
         "repro_torch.SuperblockConfig, repro_torch.SuffixArrayIndex\n"
         "repro_torch.ShardedSAEngine\n"
+        "repro_torch.config.get_arch('gemma3-1b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
