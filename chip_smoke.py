@@ -11,6 +11,7 @@
     python3 chip_smoke.py --ranks 250000 24 4  # phase 13 only: reads, text, ranks
     python3 chip_smoke.py --ranks-ooc 50000 4  # phase 14 only: reads, ranks
     python3 chip_smoke.py --lm  # phase 15 only: LM serving
+    python3 chip_smoke.py --train  # phase 16 only: LM training
     python3 chip_smoke.py --nccl  # on four cards: one NCCL rank a card
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
@@ -65,8 +66,9 @@ each of which fails loudly:
    ``pattern_search`` call a bound is held to its plain version (bounds,
    levels, rounds) and timed (CUDA events, the profiler's device time)
    beside its byte bound and its chain of dependent loads;
-8. the out-of-core build: the 2^26-token text of phase 5 and its reads cut
-   to ``OOC_READS`` reads (same read length, alphabet and seed), with
+8. the out-of-core build: the text of phase 5 cut to 2^``OOC_TEXT_LOG2``
+   tokens and its reads cut to ``OOC_READS`` reads (same read length,
+   alphabet and seed), with
    ``SuperblockConfig(num_superblocks=4, emit_lcp=True)``, each built with
    the kernels, on the plain path, and with the kernels and
    ``merge_backend="device"``.  Every build's SA and LCP must equal the
@@ -110,9 +112,10 @@ each of which fails loudly:
    ``STREAM_MERGE_READS`` reads from the chunked store at a quarter of the
    corpus bytes: the in-memory build's SA, ``peak_resident_bytes`` within
    the budget;
-11. crash safety on the card: phase 8's reads cell (memory store) built
-   journaled (``resume=True`` with a ``spill_dir``), then journaled and
-   sanitized: the SA, LCP and Footprint of phase 8's kernel build, and its
+11. crash safety on the card: phase 8's reads cell cut to ``RESUME_READS``
+   reads (memory store; its unjournaled build made first) built journaled
+   (``resume=True`` with a ``spill_dir``), then journaled and sanitized: the
+   SA, LCP and Footprint of the unjournaled kernel build, and its
    stats but those the journal (its flags, the memory store's spilled runs)
    and the sanitizer (its flag, the cache hits of its audit reads) move.
    Then, journaled, killed at the last ``build:block`` (no worker) and
@@ -158,8 +161,9 @@ each of which fails loudly:
    ``RANKS_LAUNCH_READS`` reads on the card: exit 0, rank 0 alone printing
    4 ``per_device_counts`` with nothing dropped or unresolved;
 14. the out-of-core paths on ``RANKS_D`` gloo ranks on the one card, each
-   between barriers: (a) phase 8's reads cell (S = 4, LCP, kernels, host
-   merge): phase 8's one-rank SA and LCP (digests passed to the ranks);
+   between barriers: (a) phase 8's reads cell cut to ``OOC_RANKS_READS``
+   reads (S = 4, LCP, kernels, host merge): its one-rank SA and LCP
+   (digests passed to the ranks);
    (b) the device merge at ``OOC_RANKS_DEVICE_READS`` reads: its one-rank
    build's SA and LCP; (c) (a) journaled into an index directory, killed on
    every rank at the first ``merge:rank`` and resumed: 4 blocks from the
@@ -198,7 +202,29 @@ each of which fails loudly:
    patch embeddings for the embeddings-mode archs) and 8 decode steps, with
    finite logits, walls and peak; (e) the nine tiny configs in float32,
    the card against the CPU on the same weights (forward, prefill, decode,
-   loss).
+   loss);
+16. LM training on the card (``repro_torch.train``, ``checkpoint``,
+   ``runtime``, ``launch.train``; no SA kernel may launch): (a)
+   ``TRAIN_ARCH`` (gemma3-1b) at full width in bfloat16 through
+   ``launch.train.train``: the synthetic corpus, ``TRAIN_STEPS`` steps of
+   ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens on a cosine schedule, the
+   launcher's step wrapped to time each step: the losses finite and
+   falling, the median step past the first, tokens/s, peak memory, one step
+   profiled (device busy share, launches, device time by kind), the
+   autograd cost of ``layer_params``' per-layer reads of the stacked
+   leaves and the time of ``adamw_update`` alone; (c) that run's last
+   ``TrainState`` (about 14 GB) through
+   ``CheckpointManager.save(blocking=True)`` and ``restore`` onto the card:
+   every leaf bit-equal, the bytes on disk and both walls; (b) the same
+   arch in float32 (TF32 off) cut to ``TRAIN_CHECK_LAYERS`` layers (one
+   LLLLLG period): one step from one state (drawn moments at step 3) and a
+   ``TRAIN_CHECK_BATCH`` x ``TRAIN_CHECK_LEN`` batch on the card and on the
+   CPU (loss, lr, grad_norm, every leaf of the new state), then
+   ``microbatches=2`` against 1 on the card; (d) ``TRAIN_TINY`` on the
+   card: ``run_training`` with faults injected and a preemption at step 6,
+   then ``resume=True``: the uninterrupted run's losses, the retries
+   counted; (e) the nine tiny configs in float32, one step each, card
+   against CPU.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
@@ -207,7 +233,7 @@ phase 11 alone (against unjournaled builds it makes itself; no result line),
 ``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
 makes itself; no result line), ``--ranks READS LOG2 D`` phase 13 alone at D
 ranks, ``--ranks-ooc READS D`` phase 14 alone at READS reads on D ranks,
-``--lm`` phase 15 alone (no result line).  ``--nccl`` (on a machine with four cards, never in the
+``--lm`` phase 15 alone, ``--train`` phase 16 alone (no result line).  ``--nccl`` (on a machine with four cards, never in the
 one-card run) runs phase 13's reads scheme build and TeraSort and phase 14
 (a) and (c) under ``torchrun --nproc-per-node 4`` with one rank a card,
 where ``sa_build.backend_for`` picks NCCL: each must equal its one-rank
@@ -238,15 +264,18 @@ GATHER_SMALL_M = 1 << 14  # about a device-merge tile's requests
 PAIR_SAMPLES = 1 << 20
 READS_BUILD, TEXT_BUILD = "reads 1M x 200", "text 2^26"
 READS_QUERY, TEXT_QUERY = "reads query", "text query"
-# phase 8's reads cell: the corpus of phase 5 cut to OOC_READS reads (same
-# read length, alphabet and seed) so its three builds and phase 11's six fit
-# the time limit on a slow host (the walls that forced the cuts are in
-# PERF.md); its profiled build is smaller still, since the profiler's
-# bookkeeping grows with the merge's op count
+# phase 8's cells: the corpora of phase 5 cut to OOC_READS reads and a
+# 2^OOC_TEXT_LOG2 text (same read length, alphabet and seed) so their three
+# builds each fit the time limit on a slow host (the walls that forced the
+# cuts are in PERF.md); its profiled build is smaller still, since the
+# profiler's bookkeeping grows with the merge's op count
 OOC_READS = 50_000
+OOC_TEXT_LOG2 = 24
 OOC_PROFILE_READS = 5_000
 READS_OOC = f"reads {OOC_READS // 1000}K x 200 out-of-core"
-TEXT_OOC = "text 2^26 out-of-core"
+TEXT_OOC = f"text 2^{OOC_TEXT_LOG2} out-of-core"
+# phase 11's reads cell, cut further: its six builds include a sanitized one
+RESUME_READS = 20_000
 # phase 8: superblocks of the out-of-core cells; full-size merge tiles of
 # phase 3 (C = 4 runs x 4096 heads)
 OOC_SUPERBLOCKS = 4
@@ -264,14 +293,14 @@ SORT_TILES = (SORT_TILE, 1 << 16, 1 << 20)
 # round), and the streaming build's reads, cut from phase 8's reads (the
 # walls that forced the cuts are in PERF.md)
 OPEN_CACHE_BYTES = 1 << 30
-STREAM_READS = 2_000
+STREAM_READS = 1_000
 # phase 10: the corpora of the k-way and re-rank merges, cut from 5 000 reads
 # and a 2^20 text (the k-way heap and its cursor's singleton fetches, and the
 # re-rank's splitter scans, are host work: the walls that forced the cuts are
 # in PERF.md), and the reads of their streaming runs
 MERGE_READS = 250
 MERGE_TEXT_LOG2 = 17
-STREAM_MERGE_READS = 500
+STREAM_MERGE_READS = 200
 # phase 12: the dedup cell, a 2^20-token text with planted duplicate spans
 # (without them a random 4-token text has no repeat of 32 tokens)
 DEDUP_LOG2, DEDUP_FRACTION, DEDUP_SPAN = 20, 0.05, 64
@@ -284,7 +313,7 @@ DEDUP_LOG2, DEDUP_FRACTION, DEDUP_SPAN = 20, 0.05, 64
 RANKS_D, RANKS_READS, RANKS_TEXT_LOG2 = 4, 250_000, 24
 RANKS_KEYS = RANKS_READS // RANKS_D * (FULL_READ_LEN + 1)
 RANKS_REFINE = 1 << 16
-RANKS_LAUNCH_READS = 20_000
+RANKS_LAUNCH_READS = 10_000
 # (build, corpus, mode, kernels) of phase 13, each on every rank
 RANKS_BUILDS = (("reads scheme kernels", "reads", "scheme", True),
                 ("reads scheme plain", "reads", "scheme", False),
@@ -1484,7 +1513,7 @@ def capture_tiles(fn):
 
 
 def incore_reference(dev, corpus, phase="phase 8"):
-    """In-core SA and LCP of a reads corpus on the kernel path (one
+    """In-core SA and LCP of a reads corpus or a text on the kernel path (one
     superblock, the post-hoc LCP), checked as phases 5 and 7 check theirs:
     a permutation of the valid suffixes, 2^20 sampled pairs in order, 2^20
     sampled LCP values exact."""
@@ -1501,15 +1530,19 @@ def incore_reference(dev, corpus, phase="phase 8"):
         corpus, cfg=sa_build.make_config("base", "cuda"),
         sb=SuperblockConfig(emit_lcp=True), device=dev)
     sa = torch.from_numpy(res.suffix_array).to(dev)
-    r, l = corpus.shape
-    sb = math.ceil(math.log2(l + 1))
-    expected = ((torch.arange(r, device=dev)[:, None] << sb)
-                | torch.arange(l + 1, device=dev)[None, :]).reshape(-1)
+    if corpus.ndim == 1:
+        sb, what = 0, f"2^{corpus.shape[0].bit_length() - 1}-token text"
+        expected = torch.arange(corpus.shape[0], device=dev)
+    else:
+        r, l = corpus.shape
+        sb, what = math.ceil(math.log2(l + 1)), f"{r}-read corpus"
+        expected = ((torch.arange(r, device=dev)[:, None] << sb)
+                    | torch.arange(l + 1, device=dev)[None, :]).reshape(-1)
     check_permutation(sa, expected)
     flat, pos = token_layout(corpus, sa, sb)
     check_sampled_order(flat, pos, sa, seed=7)
     check_sampled_lcp(flat, pos, torch.from_numpy(res.lcp).to(dev), seed=13)
-    log(f"{phase}: in-core reference of the {r}-read corpus: "
+    log(f"{phase}: in-core reference of the {what}: "
         f"{time.perf_counter() - t0:.3f} s; permutation ok, {PAIR_SAMPLES} sampled "
         f"pairs ordered, {PAIR_SAMPLES} sampled LCP values exact")
     return res.suffix_array, res.lcp
@@ -1523,13 +1556,18 @@ def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
     import torch
 
     from repro_torch.config import SuperblockConfig
-    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.data.corpus import synth_dna_reads, synth_token_corpus
     from repro_torch.kernels import launch_counts, ref, reset_launch_counts
     from repro_torch.kernels import merge_path as mp_mod
     from repro_torch.launch import sa_build
 
-    want_sa = {TEXT_OOC: incore_sa[TEXT_BUILD]}
-    want_lcp = {TEXT_OOC: incore_lcp[TEXT_QUERY]}
+    want_sa, want_lcp = {}, {}
+    if 1 << OOC_TEXT_LOG2 == text_tokens.shape[0]:
+        ooc_text = text_tokens
+        want_sa[TEXT_OOC], want_lcp[TEXT_OOC] = incore_sa[TEXT_BUILD], incore_lcp[TEXT_QUERY]
+    else:
+        ooc_text = synth_token_corpus(1 << OOC_TEXT_LOG2, 4, seed=0)[0]
+        want_sa[TEXT_OOC], want_lcp[TEXT_OOC] = incore_reference(dev, ooc_text)
     if OOC_READS == reads_corpus.shape[0]:
         ooc_reads = reads_corpus
         want_sa[READS_OOC] = incore_sa[READS_BUILD]
@@ -1537,7 +1575,7 @@ def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
     else:
         ooc_reads = synth_dna_reads(OOC_READS, FULL_READ_LEN, seed=0)
         want_sa[READS_OOC], want_lcp[READS_OOC] = incore_reference(dev, ooc_reads)
-    cells = [(READS_OOC, ooc_reads), (TEXT_OOC, text_tokens)]
+    cells = [(READS_OOC, ooc_reads), (TEXT_OOC, ooc_text)]
     paths = [("kernels", True, "host"), ("plain", False, "host"),
              ("kernels, device merge", True, "device")]
     counts, report = {}, {}
@@ -1623,7 +1661,7 @@ def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
             f"{m['device_ms']:.4f} ms a call), plain "
             f"{m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
-    ooc_ref = (ooc_reads, want_sa[READS_OOC], want_lcp[READS_OOC])
+    ooc_ref = {name: (corpus, want_sa[name], want_lcp[name]) for name, corpus in cells}
     return counts, report, tile_report, ooc_ref
 
 
@@ -2065,10 +2103,10 @@ def phase_resume(reads_cell, text_cell, stream_reads=STREAM_MERGE_READS):
             raise AssertionError(f"phase 11: {name}: a kernel not launched: {launched}")
         counts[f"{name} journaled, sanitized"] = launched
         del res
-        log(f"phase 11: {name}: unjournaled (phase 8) {base_wall:.3f} s, journaled "
+        log(f"phase 11: {name}: unjournaled {base_wall:.3f} s, journaled "
             f"{wall_j:.3f} s ({100 * (wall_j / base_wall - 1):+.1f} %), journaled and "
             f"sanitized {wall_i:.3f} s ({100 * (wall_i / base_wall - 1):+.1f} %); SA, "
-            f"LCP and Footprint == phase 8's; stats that moved: journal {diff}, "
+            f"LCP and Footprint == the unjournaled build's; stats that moved: journal {diff}, "
             f"journal and sanitizer {diff_i}")
 
         # (ii) killed at the last block's build and resumed, journaled as the
@@ -2521,13 +2559,15 @@ def phase_ranks(dev, reads=RANKS_READS, text_log2=RANKS_TEXT_LOG2, d=RANKS_D):
 
 
 # phase 14: the out-of-core, journaled, indexed and streaming builds on
-# RANKS_D gloo ranks on the one card.  (a) and (c) are phase 8's reads cell;
-# the device merge, the streaming build and the launcher run at smaller
-# read counts (the device merge's refiner ranks its tiles collectively;
-# streaming thrashes the chunked cache on every rank at once)
-OOC_RANKS_DEVICE_READS = 5_000
+# RANKS_D gloo ranks on the one card.  (a) and (c) at OOC_RANKS_READS reads
+# (every rank runs the whole merge); the device merge, the streaming build
+# and the launcher run at smaller read counts (the device merge's refiner
+# ranks its tiles collectively; streaming thrashes the chunked cache on
+# every rank at once)
+OOC_RANKS_READS = 20_000
+OOC_RANKS_DEVICE_READS = 2_000
 OOC_RANKS_STREAM_READS = 500
-OOC_RANKS_LAUNCH_READS = 20_000
+OOC_RANKS_LAUNCH_READS = 10_000
 OOC_RANKS_SEEDS, OOC_RANKS_SEED_LEN = 4096, 24
 # phase 13's builds under --nccl (one rank a card): the reads scheme build
 # and TeraSort over RANKS_READS reads
@@ -3294,6 +3334,354 @@ def phase_lm(dev):
     return {f"lm {LM_ARCH} serve": launched}
 
 
+# phase 16: LM training on the card.  (a) TRAIN_ARCH at full width in bf16
+# through repro_torch.launch.train's path; (b) TRAIN_ARCH in float32 cut to
+# one local:global period, one step on the card against the CPU, then two
+# microbatches against one; (c) (a)'s state saved and restored; (d) a
+# kill-and-resume run of TRAIN_TINY; (e) the tiny configs, card against CPU
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 8, 512, 1e-3
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_LEN = 6, 2, 600
+TRAIN_TINY = "tiny-minicpm"
+# float32, TF32 off: the loss within LM_TOL of its scale, grad_norm within
+# TRAIN_NORM_TOL, every leaf of the state after a step within TRAIN_STATE_TOL
+# (rtol, and atol scaled by max(1, max |reference|)), as the CPU tests hold
+# the port to repro; lr within 2 float32 ulps (cos on the card and on the CPU)
+TRAIN_NORM_TOL, TRAIN_STATE_TOL, TRAIN_LR_RTOL = 1e-3, 2e-4, 2.4e-7
+# a kill-and-resume run's losses against the uninterrupted run's: repro's own
+# test's rtol
+TRAIN_RESUME_RTOL = 1e-6
+
+
+def train_moments(state_params, gen):
+    """Nonzero AdamW moments (m ~ 0.01 N(0, 1), v ~ 1e-4 U(0, 1) + 1e-5) for
+    every leaf, drawn from ``gen`` on the params' device: from zero moments
+    the first update is lr * sign(g), and a grad within round-off of zero
+    would take another sign on the card than on the CPU."""
+    import torch
+
+    from repro_torch.models.params import tensor_map
+
+    def draw(fn):
+        return tensor_map(lambda p: fn(p.shape, dtype=torch.float32, device=p.device,
+                                       generator=gen), state_params)
+
+    m = tensor_map(lambda t: t.mul_(0.01), draw(torch.randn))
+    v = tensor_map(lambda t: t.mul_(1e-4).add_(1e-5), draw(torch.rand))
+    return m, v
+
+
+def train_state(params, gen):
+    """A TrainState at step 3 with a float32 master copy and drawn moments."""
+    import torch
+
+    from repro_torch.models.params import tensor_leaves, tensor_map
+    from repro_torch.train.step import TrainState
+
+    m, v = train_moments(params, gen)
+    dev = tensor_leaves(params)[0].device
+    return TrainState(params, {
+        "step": torch.tensor(3, dtype=torch.int32, device=dev),
+        "master": tensor_map(lambda p: p.detach().to(torch.float32, copy=True), params),
+        "m": m, "v": v})
+
+
+def train_close(name, got, want, tol):
+    """Max |got - want| over a state tree, leaf by leaf on ``got``'s device
+    (want is moved there); raises past rtol = ``tol``, atol = ``tol`` x
+    max(1, max |want|) of each leaf."""
+    import torch
+
+    from repro_torch.models.params import tensor_leaves
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(tensor_leaves(got), tensor_leaves(want), strict=True)):
+        w = w.to(g.device).double()
+        g = g.double()
+        scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        err = (g - w).abs()
+        if not bool(torch.isfinite(g).all()) or bool((err > tol * (scale + w.abs())).any()):
+            raise AssertionError(f"phase 16: {name}: leaf {i} max |err| "
+                                 f"{float(err.max())} past {tol} (scale {scale:.3f})")
+        worst = max(worst, float(err.max()) / scale if err.numel() else 0.0)
+    return worst
+
+
+def train_metrics_close(name, got, want):
+    """Loss, lr and grad_norm of two steps' metrics; returns their errors."""
+    errs = {"loss": lm_close(f"{name} loss", got["loss"], want["loss"], LM_TOL)[0],
+            "grad_norm": lm_close(f"{name} grad_norm", got["grad_norm"], want["grad_norm"],
+                                  TRAIN_NORM_TOL)[0]}
+    lr_g, lr_w = float(got["lr"]), float(want["lr"])
+    if abs(lr_g - lr_w) > TRAIN_LR_RTOL * abs(lr_w):
+        raise AssertionError(f"phase 16: {name}: lr {lr_g} != {lr_w}")
+    errs["lr"] = abs(lr_g - lr_w)
+    return errs
+
+
+def layer_params_backward_ms(params, layers, reps=3):
+    """CUDA-event time of the autograd of ``transformer.layer_params``'
+    per-layer reads ``a[i]`` of every stacked leaf: the select backward
+    materialises a full-size grad of each stacked leaf for every layer and
+    autograd sums them.  Returns (ms, bytes that work moves: a zero fill, a
+    slice copy and an accumulate of the whole leaf a layer)."""
+    import torch
+
+    from repro_torch.models.params import tensor_leaves
+
+    live = [t.detach().requires_grad_(True) for t in tensor_leaves(params["blocks"])]
+    ones = [torch.ones_like(a[0]) for a in live]
+
+    def once():
+        outs = [a[i] for i in range(layers) for a in live]
+        torch.autograd.grad(outs, live, grad_outputs=ones * layers)
+
+    ms = time_ms(once, reps)
+    nbytes = sum(a.numel() * a.element_size() for a in live)
+    return ms, layers * 4 * nbytes
+
+
+def phase_train(dev):
+    """Phase 16 (see the module docstring).  Returns the SA kernels'
+    launches over the phase (none may launch)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import ShardingPolicy, TrainConfig, get_arch
+    from repro_torch.data.loader import DeterministicLoader
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tensor_leaves, tensor_map
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.sharding.rules import make_mesh
+    from repro_torch.train.loop import run_training
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    gib = 2.0 ** 30
+    mesh, policy = make_mesh((1, 1), ("data", "model")), ShardingPolicy()
+
+    # (a) full width, bf16, through the launcher's path; the launcher's step
+    # is wrapped to time each step (synchronized) and keep the last state
+    cfg = get_arch(TRAIN_ARCH)
+    real_make = lm_train.make_train_step
+    rec = {"walls": []}
+
+    def timed_make(*a, **kw):
+        step, ssh, bsh = real_make(*a, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec.update(step=step, state=out[0], batch=batch)
+            return out
+
+        return run, ssh, bsh
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_train.make_train_step = timed_make
+    t0 = time.perf_counter()
+    try:
+        res, model = lm_train.train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                    seq=TRAIN_SEQ, lr=TRAIN_LR, schedule="cosine", device=dev,
+                                    log=lambda m: log(f"phase 16: (a) {m}"))
+    finally:
+        lm_train.make_train_step = real_make
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    if not (np.isfinite(losses).all() and len(losses) == TRAIN_STEPS and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 16: (a) losses {losses} not finite and falling")
+    step_s = float(np.median(rec["walls"][1:]))
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    state, batch, step = rec["state"], rec["batch"], rec["step"]
+    state_bytes = sum(t.numel() * t.element_size() for t in tensor_leaves(state))
+    log(f"phase 16: (a) {TRAIN_ARCH} bf16 {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {model.num_params()} params, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}; step walls "
+        f"{[round(x, 4) for x in rec['walls']]} s, median past the first {step_s:.4f} s "
+        f"({tok / step_s:.0f} tokens/s); peak {peak / gib:.2f} GiB (state "
+        f"{state_bytes / 1e9:.3f} GB, no remat); wall {wall:.1f} s")
+    dt, ms, launches = profiled(lambda: step(state, batch))
+    busy = sum(ms.values())
+    log(f"phase 16: (a) one train step profiled: wall {dt * 1e3:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / (dt * 1e3):.1f} %), {sum(launches.values())} kernel "
+        f"launches")
+    log(f"  by kind: {by_kind(ms)}")
+    for key, t in sorted(ms.items(), key=lambda x: -x[1])[:6]:
+        log(f"  {t:9.2f} ms  {key[:100]}")
+    sel_ms, sel_bytes = layer_params_backward_ms(state.params, cfg.num_layers)
+    log(f"phase 16: (a) layer_params' select backward over the stacked leaves: "
+        f"{sel_ms:.3f} ms a step ({sel_bytes / 1e9:.2f} GB moved, byte bound "
+        f"{1e3 * sel_bytes / PEAK_BYTES_PER_S:.3f} ms)")
+    tcfg_a = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1, decay_steps=TRAIN_STEPS)
+    with torch.no_grad():
+        opt_ms = time_ms(lambda: adamw_update(tcfg_a, state.params, state.params, state.opt), 3)
+    # each param: its grad (bf16) and m, v, master read, m, v, master and the
+    # bf16 param written
+    opt_bytes = sum(t.numel() for t in tensor_leaves(state.params)) * (2 + 12 + 12 + 2)
+    log(f"phase 16: (a) adamw_update alone on (a)'s state: {opt_ms:.3f} ms a step (byte "
+        f"bound {1e3 * opt_bytes / PEAK_BYTES_PER_S:.3f} ms for {opt_bytes / 1e9:.2f} GB)")
+
+    # (c) (a)'s state saved and restored onto the card, bit for bit
+    need = state_bytes * 1.1
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)  # in the checkout: 14 GB
+    ckpt_root = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(HERE, "build"))
+    try:
+        free = shutil.disk_usage(ckpt_root).free
+        if free < need:
+            raise AssertionError(f"phase 16: (c) {free / 1e9:.1f} GB free under {ckpt_root}, "
+                                 f"{need / 1e9:.1f} GB needed")
+        mgr = CheckpointManager(ckpt_root, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state, extra={"step": TRAIN_STEPS}, blocking=True)
+        t_save = time.perf_counter() - t0
+        on_disk = dir_bytes(os.path.join(ckpt_root, f"step_{TRAIN_STEPS:08d}"))
+        target = tensor_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)
+        t0 = time.perf_counter()
+        back, extra = mgr.restore(target, device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(tensor_leaves(back), tensor_leaves(state), strict=True)):
+            bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(w.dtype)
+            same = torch.equal(g.view(bits), w.view(bits)) if bits else torch.equal(g, w)
+            if not same or g.device != w.device or g.dtype != w.dtype:
+                raise AssertionError(f"phase 16: (c) leaf {i} differs after restore")
+        if extra != {"step": TRAIN_STEPS}:
+            raise AssertionError(f"phase 16: (c) extra {extra}")
+        log(f"phase 16: (c) CheckpointManager save (blocking) of (a)'s state, "
+            f"{len(tensor_leaves(state))} leaves: {on_disk / 1e9:.3f} GB on disk in "
+            f"{t_save:.2f} s ({on_disk / t_save / 1e9:.2f} GB/s); restore onto the card "
+            f"{t_restore:.2f} s ({on_disk / t_restore / 1e9:.2f} GB/s, warm page cache); "
+            f"every leaf bit-equal ({free / 1e9:.0f} GB were free)")
+        del back
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    del res, model, state, batch, step, rec
+    torch.cuda.empty_cache()
+
+    # (b) float32 at full width, one local:global period: a step on the card
+    # against the CPU from one state and batch; then two microbatches
+    cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    card_model, cpu_model = Model(cfg32), Model(cfg32)
+    gen = torch.Generator(dev).manual_seed(16)
+    state = train_state(card_model.init(torch.Generator(dev).manual_seed(1), device=dev), gen)
+    cpu_state = tensor_map(lambda t: t.cpu(), state)
+    rng = np.random.default_rng(16)
+    shape = (TRAIN_CHECK_BATCH, TRAIN_CHECK_LEN)
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, shape).astype(np.int32),
+             "labels": rng.integers(1, cfg.vocab_size, shape).astype(np.int32)}
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, decay_steps=20)
+
+    def one_step(mdl, st, tc):
+        fn = make_train_step(mdl, mesh, policy, tc, TRAIN_CHECK_BATCH, TRAIN_CHECK_LEN,
+                             donate=False)[0]
+        t0 = time.perf_counter()
+        out = fn(st, batch)
+        if st.opt["step"].is_cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (new_card, met_card), t_card = one_step(card_model, state, tcfg)
+    (new_cpu, met_cpu), t_cpu = one_step(cpu_model, cpu_state, tcfg)
+    errs = train_metrics_close("(b) card vs CPU", met_card, met_cpu)
+    errs["state"] = train_close("(b) card vs CPU", new_card, new_cpu, TRAIN_STATE_TOL)
+    del new_cpu, cpu_state
+    (new_mb, met_mb), t_mb = one_step(card_model, state,
+                                      dataclasses.replace(tcfg, microbatches=2))
+    errs_mb = train_metrics_close("(b) microbatches 2 vs 1", met_mb, met_card)
+    errs_mb["state"] = train_close("(b) microbatches 2 vs 1", new_mb, new_card, TRAIN_STATE_TOL)
+    log(f"phase 16: (b) {TRAIN_ARCH} float32 (TF32 off), {TRAIN_CHECK_LAYERS} layers "
+        f"({card_model.num_params()} params), one step of {TRAIN_CHECK_BATCH}x"
+        f"{TRAIN_CHECK_LEN} tokens past the {cfg.attention.sliding_window}-token window "
+        f"from one state (moments drawn, step 3): card {t_card:.3f} s, CPU {t_cpu:.3f} s; "
+        f"loss {float(met_card['loss']):.6f} (|err| {errs['loss']:.3e}), grad_norm "
+        f"{float(met_card['grad_norm']):.6f} (|err| {errs['grad_norm']:.3e}), lr |err| "
+        f"{errs['lr']:.3e}, every leaf of the new state within {errs['state']:.3e} of its "
+        f"scale; microbatches=2 against 1 on the card ({t_mb:.3f} s): loss |err| "
+        f"{errs_mb['loss']:.3e}, grad_norm {errs_mb['grad_norm']:.3e}, state "
+        f"{errs_mb['state']:.3e}; tolerances {LM_TOL} / {TRAIN_NORM_TOL} / {TRAIN_STATE_TOL}")
+    del state, new_card, new_mb, card_model, cpu_model
+    torch.cuda.empty_cache()
+
+    # (d) kill and resume on the card: faults retried, a preemption's final
+    # checkpoint, the resumed run's losses the uninterrupted run's
+    tiny = dataclasses.replace(get_arch(TRAIN_TINY), param_dtype="float32",
+                               compute_dtype="float32")
+    tmodel = Model(tiny)
+    ttc = TrainConfig(learning_rate=1e-5, warmup_steps=2, decay_steps=50)
+    tstep = make_train_step(tmodel, mesh, policy, ttc, 4, 16, donate=False)[0]
+    toks = (np.arange(1, 20_001) * 7 % (tiny.vocab_size - 1) + 1).astype(np.int32)
+    loader = DeterministicLoader(toks, batch=4, seq_len=16, seed=3)
+    t0 = time.perf_counter()
+    full = run_training(tmodel, tstep, loader, ttc, steps=10, seed=5, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        fault = FaultInjector(fail_steps=[3, 7], max_failures_per_step=2)
+        part = run_training(tmodel, tstep, loader, ttc, steps=10, ckpt_dir=d, ckpt_every=3,
+                            preempt_at=6, fault=fault, seed=5, device=dev)
+        resumed = run_training(tmodel, tstep, loader, ttc, steps=10, ckpt_dir=d,
+                               resume=True, ckpt_every=100, fault=fault, seed=5, device=dev)
+    t_d = time.perf_counter() - t0
+    if (part.final_step, resumed.restored_from, resumed.final_step) != (6, 6, 10) or \
+            (part.retries, resumed.retries, fault.injected) != (2, 2, 4):
+        raise AssertionError(f"phase 16: (d) steps {part.final_step}/{resumed.restored_from}/"
+                             f"{resumed.final_step}, retries {part.retries}/{resumed.retries}"
+                             f"/{fault.injected}")
+    np.testing.assert_allclose(part.losses + resumed.losses, full.losses,
+                               rtol=TRAIN_RESUME_RTOL)
+    err_d = max(abs(a - b) / abs(b) for a, b in zip(part.losses + resumed.losses, full.losses,
+                                                      strict=True))
+    log(f"phase 16: (d) {TRAIN_TINY} float32 on the card, 10 steps: preempted at step 6 "
+        f"with faults at steps 3 and 7 (twice each), resumed from step 6: losses equal to "
+        f"the uninterrupted run's within {err_d:.2e} (rtol {TRAIN_RESUME_RTOL}), "
+        f"{part.retries} + {resumed.retries} retries of {fault.injected} faults; "
+        f"{t_d:.2f} s for the three runs")
+
+    # (e) the tiny configs, float32: one step, the card against the CPU
+    worst = {}
+    for name in LM_TINY:
+        tcfg_e = dataclasses.replace(get_arch(name), param_dtype="float32",
+                                     compute_dtype="float32")
+        cpu_model, card_model = Model(tcfg_e), Model(tcfg_e)
+        cpu = train_state(cpu_model.init(torch.Generator().manual_seed(0), device="cpu"),
+                          torch.Generator().manual_seed(1))
+        card = tensor_map(lambda t: t.to(dev), cpu)
+        trng = np.random.default_rng(0)
+        b = {"labels": trng.integers(0, tcfg_e.vocab_size, (2, 16)).astype(np.int32)}
+        if tcfg_e.input_mode == "embeddings":
+            b["embeds"] = trng.normal(size=(2, 16, tcfg_e.d_model)).astype(np.float32)
+        else:
+            b["tokens"] = trng.integers(0, tcfg_e.vocab_size, (2, 16)).astype(np.int32)
+        outs = []
+        for mdl, st in ((cpu_model, cpu), (card_model, card)):
+            fn = make_train_step(mdl, mesh, policy, tcfg, 2, 16, donate=False)[0]
+            outs.append(fn(st, b))
+        (nc, mc), (ng, mg) = outs
+        e = train_metrics_close(f"(e) {name}", mg, mc)
+        worst[name] = max(e["loss"], train_close(f"(e) {name}", ng, nc, TRAIN_STATE_TOL))
+    log("phase 16: (e) tiny configs float32, one train step, card vs CPU from one state, "
+        "max |err| over the loss and every leaf of the new state (of its scale): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    launched = launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"phase 16: an SA kernel launched: {launched}")
+    return {f"lm {TRAIN_ARCH} train": launched}
+
+
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
@@ -3447,7 +3835,7 @@ def main(argv) -> int:
     those sizes; ``--ranks READS LOG2 D``: phases 1-2 and then phase 13 at
     those sizes on D ranks; ``--ranks-ooc READS D``: phases 1-2 and then
     phase 14 at READS reads on D ranks; ``--lm``: phases 1-2 and then
-    phase 15; ``--nccl``: phases 1-2 and then ``phase_nccl`` on four cards.
+    phase 15; ``--train``: phases 1-2 and then phase 16; ``--nccl``: phases 1-2 and then ``phase_nccl`` on four cards.
     None of these prints a result line (``--nccl-rank`` is one rank of
     ``--nccl``)."""
     import torch
@@ -3534,6 +3922,12 @@ def main(argv) -> int:
         log(f"phase 15: {time.perf_counter() - t0:.1f} s")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv == ["--train"]:
+        t0 = time.perf_counter()
+        phase_train(dev)
+        log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv[:1] == ["--ranks"] and len(argv) == 4:
         t0 = time.perf_counter()
         phase_ranks(dev, int(argv[1]), int(argv[2]), int(argv[3]))
@@ -3549,49 +3943,67 @@ def main(argv) -> int:
     text_tokens, _ = synth_token_corpus(FULL_TEXT, 4, seed=0)
     log(f"corpora synthesized in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     kern = phase_kernels(dev, reads_corpus, text_tokens)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_small_builds(dev)
     phase_small_indexes(dev)
     phase_small_out_of_core(dev)
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts, incore_sa, scheme_fp = phase_full_builds(dev, reads_corpus, text_tokens)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_profile([(READS_BUILD, reads_corpus), (TEXT_BUILD, text_tokens)])
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     query_counts, query_report, incore_lcp, reads_index = phase_queries(
         dev, reads_corpus, text_tokens)
     kern["pattern_search"] = query_report[READS_QUERY]["search"]
     counts.update(query_counts)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts.update(phase_reopen(dev, reads_index))
     del reads_index
+    log(f"phase 9 (reopen): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     ooc_counts, ooc_report, tiles, ooc_ref = phase_out_of_core(
         dev, reads_corpus, text_tokens, incore_sa, incore_lcp)
     counts.update(ooc_counts)
-    counts.update(phase_streaming(dev, ooc_ref))
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(phase_streaming(dev, ooc_ref[READS_OOC]))
+    log(f"phase 9 (streaming): {time.perf_counter() - t0:.1f} s")
     kern["merge_path"] = tiles["largest"]
     t0 = time.perf_counter()
     counts.update(phase_merges(dev))
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    cells = []
-    for name, corpus, sa, lcp in ((READS_OOC, *ooc_ref),
-                                  (TEXT_OOC, text_tokens, incore_sa[TEXT_BUILD],
-                                   incore_lcp[TEXT_QUERY])):
-        r = ooc_report[(name, "kernels")]
-        cells.append((name, corpus, (sa, lcp, r["footprint"], r["stats"]), r["wall_s"]))
-    counts.update(phase_resume(*cells))
+    r = ooc_report[(TEXT_OOC, "kernels")]
+    text_cell = (TEXT_OOC, ooc_ref[TEXT_OOC][0],
+                 (*ooc_ref[TEXT_OOC][1:], r["footprint"], r["stats"]), r["wall_s"])
+    reads_cell = unjournaled_cell(f"reads {RESUME_READS // 1000}K x 200 out-of-core",
+                                  synth_dna_reads(RESUME_READS, FULL_READ_LEN, seed=0))
+    counts.update(phase_resume(reads_cell, text_cell))
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts.update(phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp))
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
-    del reads_corpus, text_tokens, incore_sa, incore_lcp, cells
+    del reads_corpus, text_tokens, incore_sa, incore_lcp, reads_cell, text_cell
     t0 = time.perf_counter()
     counts.update(phase_ranks(dev))
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts.update(phase_ranks_ooc(dev, ref=ooc_ref))
+    counts.update(phase_ranks_ooc(dev, OOC_RANKS_READS, ref=ooc_ref[READS_OOC]))
     del ooc_ref
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts.update(phase_lm(dev))
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(phase_train(dev))
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",

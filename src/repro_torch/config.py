@@ -14,9 +14,14 @@ The LM side: copies of ``AttentionConfig``, ``MoEConfig``, ``SSMConfig`` and
 registered config to ``repro``'s field for field).  ``scan_layers`` and
 ``remat`` are kept for the configs' sake; the port runs its layers eagerly
 and ignores both.
+
+The training and serving side: copies of ``ShapeConfig`` with
+``LM_SHAPES``, ``MeshConfig``, ``ShardingPolicy``, ``TrainConfig`` and
+``ServeConfig``, field for field (``tests/test_torch_lm_configs.py``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, fields
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -146,6 +151,92 @@ class ArchConfig:
         m = self.moe
         inactive = (m.num_experts - m.top_k) * 3 * self.d_model * m.expert_ffn_dim
         return self.param_count() - self.num_layers * inactive
+
+
+# ---------------------------------------------------------------------------
+# shapes, mesh and sharding policy, training and serving
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+LM_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        return int(math.prod(self.shape))
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a in ("pod", "data"))
+
+    @property
+    def model_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a == "model")
+
+
+@dataclass(frozen=True)
+class ShardingPolicy:
+    """How logical axes map onto mesh axes (with divisibility fallback)."""
+
+    fsdp_axes: Tuple[str, ...] = ("data",)
+    tp_axes: Tuple[str, ...] = ("model",)
+    dp_axes: Tuple[str, ...] = ("pod", "data")
+    # shard decode KV cache sequence dim over these axes (flash-decoding style)
+    kv_seq_axes: Tuple[str, ...] = ("model",)
+    # activations sequence-parallel axes for training (None = off)
+    seq_axes: Tuple[str, ...] = ()
+    moe_ep: bool = False
+    # gradient reduction: "reduce_scatter" (fsdp) or "all_reduce"
+    grad_reduce: str = "reduce_scatter"
+    # FSDP-shard the embedding table's d_model dim; False keeps it sharded
+    # on vocab only, so the logits never contract over a sharded d_model
+    embed_fsdp: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # cosine | wsd | constant
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    stable_steps: int = 0  # for WSD
+    min_lr_ratio: float = 0.1
+    microbatches: int = 1
+    # gradient compression across DP replicas: none | int8 | topk
+    grad_compression: str = "none"
+    topk_ratio: float = 0.05
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_seq_len: int = 32_768
+    max_batch: int = 128
+    prefill_chunk: int = 512
+    eos_id: int = 2
 
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}

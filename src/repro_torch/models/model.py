@@ -17,7 +17,11 @@ tree as nested dicts, and the compute methods take such a tree first, as
 ``repro``'s do.  Methods that allocate take a ``device``: the card by
 default (``repro_torch.device.resolve_device``: it raises without CUDA
 unless ``device="cpu"``).  Inputs given as numpy arrays go to the
-parameters' device.  No method builds an autograd graph in this slice.
+parameters' device.  The registered parameters are frozen
+(``requires_grad=False``): the train step (``repro_torch.train.step``)
+takes the grads of ``loss`` at detached copies of a tree's leaves, so
+``loss`` builds an autograd graph only when its parameter tree asks for
+one, and no other method builds one.
 """
 from __future__ import annotations
 
@@ -92,6 +96,10 @@ class Model(nn.Module):
                 else torch.as_tensor(np.asarray(x), device=dev) for x in xs]
 
     # -- parameters ------------------------------------------------------
+    def param_defs(self):
+        """The ``ParamDef`` tree (shapes, logical axes, init kinds)."""
+        return self._defs
+
     def init(self, generator: Optional[torch.Generator] = None, dtype: Optional[Any] = None,
              device=None):
         """Draw every parameter on ``device`` (the card by default) in
@@ -164,7 +172,7 @@ class Model(nn.Module):
 
 
 def _torch_array(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))  # a 0-d array stays 0-d
     bf16 = a.dtype.name == "bfloat16"  # numpy has no bfloat16: carry the bits
     if bf16:
         a = a.view(np.uint16)
@@ -199,3 +207,34 @@ def _paths(tree, prefix=()):
             yield from _paths(v, (*prefix, k))
     else:
         yield ".".join(prefix)
+
+
+def train_state_from_reference(model: Model, state, device=None):
+    """Carry ``repro``'s ``TrainState`` (params and opt as numpy, e.g.
+    ``jax.tree.map(np.asarray, state)``) into the port's on ``device`` (the
+    card by default): the params load into ``model`` as
+    ``params_from_reference`` loads them, and opt's ``step``, ``master``,
+    ``m`` and ``v`` keep their dtypes.  Raises ``ValueError`` when a name or
+    a shape differs."""
+    from repro_torch.train.step import TrainState
+
+    params, opt = state
+    params = params_from_reference(model, params, device=device)
+    dev = resolve_device(device)
+    want = set(_paths(params))
+    new_opt = {"step": _torch_array(opt["step"], dev)}
+    if tuple(new_opt["step"].shape) != () or new_opt["step"].dtype != torch.int32:
+        raise ValueError("opt['step'] must be an int32 scalar")
+    for key in ("master", "m", "v"):
+        if set(_paths(opt[key])) != want:
+            raise ValueError(f"opt[{key!r}] differs from the parameter tree")
+
+        def load(a, p):
+            t = _torch_array(a, dev)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"shape {tuple(t.shape)} != {tuple(p.shape)}")
+            return t
+
+        new_opt[key] = tree_map(load, opt[key], params,
+                                is_leaf=lambda x: not isinstance(x, dict))
+    return TrainState(params=params, opt=new_opt)

@@ -17,8 +17,9 @@ fan_in is the layer count, as in ``repro``.  Values come from a
 values across).  Each tensor is drawn directly in its target dtype on its
 device, never as a float32 temporary.
 
-Trees are plain nested dicts (and tuples for recurrent states); leaves are
-visited in sorted-key order, as ``jax.tree`` flattens a dict.
+Trees are plain nested dicts (and tuples for recurrent states, NamedTuples
+such as ``TrainState``); leaves are visited in sorted-key order, as
+``jax.tree`` flattens a dict, and a tuple's in field order.
 """
 from __future__ import annotations
 
@@ -54,14 +55,39 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Callable = is_def):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
-                          for i, t in enumerate(tree))
+        items = [tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+                 for i, t in enumerate(tree)]
+        # a NamedTuple (``TrainState``) takes its fields as arguments
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     return fn(tree, *rest)
 
 
 def tree_leaves(tree, is_leaf: Callable = is_def) -> List[Any]:
     out: List[Any] = []
     tree_map(out.append, tree, is_leaf=is_leaf)
+    return out
+
+
+def is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def tensor_map(fn: Callable, tree, *rest):
+    """``tree_map`` over a tree whose leaves are tensors."""
+    return tree_map(fn, tree, *rest, is_leaf=is_tensor)
+
+
+def tensor_leaves(tree) -> List[torch.Tensor]:
+    """A tensor tree's leaves in ``jax.tree`` order."""
+    return tree_leaves(tree, is_leaf=is_tensor)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure (tensor leaves) holding ``leaves``."""
+    it = iter(leaves)
+    out = tensor_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
     return out
 
 

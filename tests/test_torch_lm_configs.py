@@ -1,4 +1,5 @@
-"""The port's arch registry, full-width shapes, parameter init, engine
+"""The port's arch registry and its shape, mesh, sharding, training and
+serving configs, full-width shapes, parameter init, engine
 schedule, launcher and example against ``repro``'s, on the CPU: every
 registered config field for field, and the ten full configs' parameter and
 cache shapes on the ``meta`` device (nothing allocated); and the LM path on
@@ -46,11 +47,23 @@ def test_registry_lists_the_same_archs():
         get_arch("no-such-arch")
 
 
-@pytest.mark.parametrize("cls", ["AttentionConfig", "MoEConfig", "SSMConfig", "ArchConfig"])
+@pytest.mark.parametrize("cls", ["AttentionConfig", "MoEConfig", "SSMConfig", "ArchConfig",
+                                 "ShapeConfig", "MeshConfig", "ShardingPolicy",
+                                 "TrainConfig", "ServeConfig"])
 def test_arch_dataclasses_have_repros_fields_and_defaults(cls):
     ref = [(f.name, f.default) for f in dataclasses.fields(getattr(ref_config, cls))]
     port = [(f.name, f.default) for f in dataclasses.fields(getattr(config, cls))]
     assert port == ref
+
+
+def test_shapes_and_mesh_config_match_repro():
+    assert {k: dataclasses.asdict(v) for k, v in config.LM_SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref_config.LM_SHAPES.items()}
+    for shape, names in (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")),
+                         ((8,), ("model",))):
+        got, want = config.MeshConfig(shape, names), ref_config.MeshConfig(shape, names)
+        assert (got.num_devices, got.data_axes, got.model_axes) == \
+            (want.num_devices, want.data_axes, want.model_axes)
 
 
 @pytest.mark.parametrize("name", ALL)

@@ -61,8 +61,25 @@ SLICE_MODULES = [
     "repro_torch.models.transformer",
     "repro_torch.models.xlstm",
     "repro_torch.models.model",
+    "repro_torch.train",
+    "repro_torch.train.optimizer",
+    "repro_torch.train.step",
+    "repro_torch.train.loop",
+    "repro_torch.train.compression",
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.manager",
+    "repro_torch.checkpoint.msgpack_codec",
+    "repro_torch.runtime",
+    "repro_torch.runtime.fault",
+    "repro_torch.runtime.monitor",
+    "repro_torch.runtime.elastic",
+    "repro_torch.sharding",
+    "repro_torch.sharding.rules",
+    "repro_torch.launch.specs",
+    "repro_torch.launch.train",
 ]
-EXAMPLES = ["torch_quickstart", "torch_sa_build", "torch_dedup_corpus", "torch_serve_lm"]
+EXAMPLES = ["torch_quickstart", "torch_sa_build", "torch_dedup_corpus", "torch_serve_lm",
+            "torch_train_lm"]
 
 
 def _port_files():
