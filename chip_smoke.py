@@ -12,6 +12,7 @@
     python3 chip_smoke.py --ranks-ooc 50000 4  # phase 14 only: reads, ranks
     python3 chip_smoke.py --lm  # phase 15 only: LM serving
     python3 chip_smoke.py --train  # phase 16 only: LM training
+    python3 chip_smoke.py --train-ranks  # phase 17 only: LM training on D ranks
     python3 chip_smoke.py --nccl  # on four cards: one NCCL rank a card
 
 Run from the root of a checkout on a machine with one CUDA card.  Phases,
@@ -208,8 +209,12 @@ each of which fails loudly:
    ``TRAIN_ARCH`` (gemma3-1b) at full width in bfloat16 through
    ``launch.train.train``: the synthetic corpus, ``TRAIN_STEPS`` steps of
    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens on a cosine schedule, the
-   launcher's step wrapped to time each step: the losses finite and
-   falling, the median step past the first, tokens/s, peak memory, one step
+   launcher's step wrapped to time each step, each block under the
+   config's remat (``nothing_saveable``): the losses finite and
+   falling, the median step past the first, tokens/s, peak memory, and the
+   first ``TRAIN_NONE_STEPS`` steps again with ``remat="none"`` (their peak
+   and step wall beside the remat run's, the losses within
+   ``TRAIN_REMAT_LOSS_RTOL``), one step
    profiled (device busy share, launches, device time by kind), the
    autograd cost of ``layer_params``' per-layer reads of the stacked
    leaves and the time of ``adamw_update`` alone; (c) that run's last
@@ -220,11 +225,28 @@ each of which fails loudly:
    LLLLLG period): one step from one state (drawn moments at step 3) and a
    ``TRAIN_CHECK_BATCH`` x ``TRAIN_CHECK_LEN`` batch on the card and on the
    CPU (loss, lr, grad_norm, every leaf of the new state), then
-   ``microbatches=2`` against 1 on the card; (d) ``TRAIN_TINY`` on the
+   ``microbatches=2`` against 1 and ``remat="none"`` and
+   ``"dots_saveable"`` against the config's on the card (the last two
+   within ``TRAIN_REMAT_TOL``); (d) ``TRAIN_TINY`` on the
    card: ``run_training`` with faults injected and a preemption at step 6,
    then ``resume=True``: the uninterrupted run's losses, the retries
    counted; (e) the nine tiny configs in float32, one step each, card
-   against CPU.
+   against CPU;
+17. LM training on D ranks of ``torch.distributed`` (gloo on the one card;
+   ``train.step`` on a ``(D, 1)`` mesh, the state FSDP-sharded by the spec
+   trees; no SA kernel may launch): (a) ``TRAIN_ARCH`` in bfloat16 cut to
+   ``TRAIN_CHECK_LAYERS`` layers on ``TRAIN_RANKS_D`` ranks, phase 16 (a)'s
+   corpus, batch and schedule for ``TRAIN_RANKS_STEPS`` steps, against the
+   same run on one process: every rank's losses rank 0's and within
+   ``TRAIN_RANKS_LOSS_RTOL`` of one process's, the state bytes a rank the
+   dry-run's figure for mesh (4, 1), the step wall (largest rank) and each
+   rank's peak; (b) phase 16 (b)'s float32 step on ``TRAIN_RANKS_CHECK_D``
+   ranks of a spawn of their own, the gathered state held to the
+   one-process step's as (b) holds the card to the CPU; beside it (c) ``torchrun --nproc-per-node 2 -m
+   repro_torch.launch.train`` on ``TRAIN_TINY`` with ``--ckpt``, then
+   ``--resume``; (d) ``launch.train --dry-run`` for ``TRAIN_ARCH`` at
+   ``train_4k``, and the dry-run's memory of phase 16 (a)'s shape on (1, 1)
+   beside (a)'s measured peak.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
@@ -233,7 +255,8 @@ phase 11 alone (against unjournaled builds it makes itself; no result line),
 ``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
 makes itself; no result line), ``--ranks READS LOG2 D`` phase 13 alone at D
 ranks, ``--ranks-ooc READS D`` phase 14 alone at READS reads on D ranks,
-``--lm`` phase 15 alone, ``--train`` phase 16 alone (no result line).  ``--nccl`` (on a machine with four cards, never in the
+``--lm`` phase 15 alone, ``--train`` phase 16 alone, ``--train-ranks`` phase
+17 alone (no result line).  ``--nccl`` (on a machine with four cards, never in the
 one-card run) runs phase 13's reads scheme build and TeraSort and phase 14
 (a) and (c) under ``torchrun --nproc-per-node 4`` with one rank a card,
 where ``sa_build.backend_for`` picks NCCL: each must equal its one-rank
@@ -275,7 +298,7 @@ OOC_PROFILE_READS = 5_000
 READS_OOC = f"reads {OOC_READS // 1000}K x 200 out-of-core"
 TEXT_OOC = f"text 2^{OOC_TEXT_LOG2} out-of-core"
 # phase 11's reads cell, cut further: its six builds include a sanitized one
-RESUME_READS = 20_000
+RESUME_READS = 10_000
 # phase 8: superblocks of the out-of-core cells; full-size merge tiles of
 # phase 3 (C = 4 runs x 4096 heads)
 OOC_SUPERBLOCKS = 4
@@ -293,13 +316,13 @@ SORT_TILES = (SORT_TILE, 1 << 16, 1 << 20)
 # round), and the streaming build's reads, cut from phase 8's reads (the
 # walls that forced the cuts are in PERF.md)
 OPEN_CACHE_BYTES = 1 << 30
-STREAM_READS = 1_000
+STREAM_READS = 500
 # phase 10: the corpora of the k-way and re-rank merges, cut from 5 000 reads
 # and a 2^20 text (the k-way heap and its cursor's singleton fetches, and the
 # re-rank's splitter scans, are host work: the walls that forced the cuts are
 # in PERF.md), and the reads of their streaming runs
 MERGE_READS = 250
-MERGE_TEXT_LOG2 = 17
+MERGE_TEXT_LOG2 = 16
 STREAM_MERGE_READS = 200
 # phase 12: the dedup cell, a 2^20-token text with planted duplicate spans
 # (without them a random 4-token text has no repeat of 32 tokens)
@@ -2564,7 +2587,7 @@ def phase_ranks(dev, reads=RANKS_READS, text_log2=RANKS_TEXT_LOG2, d=RANKS_D):
 # and the launcher run at smaller read counts (the device merge's refiner
 # ranks its tiles collectively; streaming thrashes the chunked cache on
 # every rank at once)
-OOC_RANKS_READS = 20_000
+OOC_RANKS_READS = 10_000
 OOC_RANKS_DEVICE_READS = 2_000
 OOC_RANKS_STREAM_READS = 500
 OOC_RANKS_LAUNCH_READS = 10_000
@@ -3343,6 +3366,14 @@ TRAIN_ARCH = "gemma3-1b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 8, 512, 1e-3
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_LEN = 6, 2, 600
 TRAIN_TINY = "tiny-minicpm"
+# (a) without remat: its first steps; the losses against the remat run's.
+# The same computation, the backward recomputing the blocks: bf16 round-off
+# through other GEMM layouts, which the first update (lr x sign(g) from zero
+# moments) amplifies; 1.08e-3 was read at the third step (PERF.md)
+TRAIN_NONE_STEPS, TRAIN_REMAT_LOSS_RTOL = 3, 3e-3
+# (b) in float32 from drawn moments: the state after a step under remat
+# "none" and "dots_saveable" against the config's, of each leaf's scale
+TRAIN_REMAT_TOL = 1e-5
 # float32, TF32 off: the loss within LM_TOL of its scale, grad_norm within
 # TRAIN_NORM_TOL, every leaf of the state after a step within TRAIN_STATE_TOL
 # (rtol, and atol scaled by max(1, max |reference|)), as the CPU tests hold
@@ -3514,7 +3545,7 @@ def phase_train(dev):
         f"{TRAIN_BATCH}x{TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}; step walls "
         f"{[round(x, 4) for x in rec['walls']]} s, median past the first {step_s:.4f} s "
         f"({tok / step_s:.0f} tokens/s); peak {peak / gib:.2f} GiB (state "
-        f"{state_bytes / 1e9:.3f} GB, no remat); wall {wall:.1f} s")
+        f"{state_bytes / 1e9:.3f} GB, remat {cfg.remat}); wall {wall:.1f} s")
     dt, ms, launches = profiled(lambda: step(state, batch))
     busy = sum(ms.values())
     log(f"phase 16: (a) one train step profiled: wall {dt * 1e3:.2f} ms, device busy "
@@ -3570,7 +3601,37 @@ def phase_train(dev):
         del back
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    del res, model, state, batch, step, rec
+    del res, model, state, batch, step
+    torch.cuda.empty_cache()
+
+    # (a) again without remat: TRAIN_NONE_STEPS steps of the same run, the
+    # launcher's config with remat="none"
+    real_arch = lm_train.get_arch
+    rec.clear()  # the remat run's last state goes too
+    rec["walls"] = []
+    torch.cuda.reset_peak_memory_stats()
+    lm_train.make_train_step = timed_make
+    lm_train.get_arch = lambda name: dataclasses.replace(real_arch(name), remat="none")
+    try:
+        res_none, _ = lm_train.train(TRAIN_ARCH, steps=TRAIN_NONE_STEPS, batch=TRAIN_BATCH,
+                                     seq=TRAIN_SEQ, lr=TRAIN_LR, schedule="cosine",
+                                     device=dev, log=lambda m: None)
+    finally:
+        lm_train.make_train_step, lm_train.get_arch = real_make, real_arch
+    peak_none = torch.cuda.max_memory_allocated()
+    step_none = float(np.median(rec["walls"][1:]))
+    log(f"phase 16: (a) remat {cfg.remat} against none: peak {peak / gib:.2f} against "
+        f"{peak_none / gib:.2f} GiB, median step past the first {step_s:.4f} against "
+        f"{step_none:.4f} s ({TRAIN_NONE_STEPS} steps without remat: losses "
+        f"{[round(x, 4) for x in res_none.losses]}, the remat run's "
+        f"{[round(x, 4) for x in losses[:TRAIN_NONE_STEPS]]})")
+    remat_err = max(abs(a - b) / abs(b) for a, b in zip(
+        res_none.losses, losses[:TRAIN_NONE_STEPS], strict=True))
+    log(f"phase 16: (a) losses without remat against the remat run's: max rel |err| "
+        f"{remat_err:.3e} (rtol {TRAIN_REMAT_LOSS_RTOL})")
+    if not remat_err <= TRAIN_REMAT_LOSS_RTOL:
+        raise AssertionError("phase 16: (a) the losses without remat are not the remat run's")
+    del res_none, rec
     torch.cuda.empty_cache()
 
     # (b) float32 at full width, one local:global period: a step on the card
@@ -3605,6 +3666,20 @@ def phase_train(dev):
                                       dataclasses.replace(tcfg, microbatches=2))
     errs_mb = train_metrics_close("(b) microbatches 2 vs 1", met_mb, met_card)
     errs_mb["state"] = train_close("(b) microbatches 2 vs 1", new_mb, new_card, TRAIN_STATE_TOL)
+    del new_mb
+    # the same step under the other remat modes (the model's cfg only: the
+    # state is the same tree)
+    errs_remat = {}
+    for mode in ("none", "dots_saveable"):
+        (new_r, met_r), _ = one_step(Model(dataclasses.replace(cfg32, remat=mode)), state, tcfg)
+        errs_remat[mode] = max(abs(float(met_r[k]) - float(met_card[k]))
+                               / max(1.0, abs(float(met_card[k]))) for k in ("loss", "grad_norm"))
+        if errs_remat[mode] > TRAIN_REMAT_TOL:
+            raise AssertionError(f"phase 16: (b) remat {mode}: metrics {met_r} against "
+                                 f"{met_card}")
+        errs_remat[mode] = max(errs_remat[mode], train_close(
+            f"(b) remat {mode} vs {cfg32.remat}", new_r, new_card, TRAIN_REMAT_TOL))
+        del new_r
     log(f"phase 16: (b) {TRAIN_ARCH} float32 (TF32 off), {TRAIN_CHECK_LAYERS} layers "
         f"({card_model.num_params()} params), one step of {TRAIN_CHECK_BATCH}x"
         f"{TRAIN_CHECK_LEN} tokens past the {cfg.attention.sliding_window}-token window "
@@ -3614,8 +3689,12 @@ def phase_train(dev):
         f"{errs['lr']:.3e}, every leaf of the new state within {errs['state']:.3e} of its "
         f"scale; microbatches=2 against 1 on the card ({t_mb:.3f} s): loss |err| "
         f"{errs_mb['loss']:.3e}, grad_norm {errs_mb['grad_norm']:.3e}, state "
-        f"{errs_mb['state']:.3e}; tolerances {LM_TOL} / {TRAIN_NORM_TOL} / {TRAIN_STATE_TOL}")
-    del state, new_card, new_mb, card_model, cpu_model
+        f"{errs_mb['state']:.3e}; tolerances {LM_TOL} / {TRAIN_NORM_TOL} / {TRAIN_STATE_TOL}; "
+        f"remat none and dots_saveable against {cfg32.remat} on the card, loss, grad_norm "
+        f"and every leaf of the new state within " + ", ".join(
+            f"{v:.3e}" for v in errs_remat.values()) + f" of its scale (tolerance "
+        f"{TRAIN_REMAT_TOL})")
+    del state, new_card, card_model, cpu_model
     torch.cuda.empty_cache()
 
     # (d) kill and resume on the card: faults retried, a preemption's final
@@ -3679,7 +3758,331 @@ def phase_train(dev):
     launched = launch_counts()
     if any(launched.values()):
         raise AssertionError(f"phase 16: an SA kernel launched: {launched}")
-    return {f"lm {TRAIN_ARCH} train": launched}
+    return {f"lm {TRAIN_ARCH} train": launched}, {"peak": peak, "step_s": step_s}
+
+
+# phase 17: training on D ranks of torch.distributed (gloo; one card, so
+# NCCL, which takes one rank a card, cannot run): (a) TRAIN_ARCH in bf16 cut
+# to TRAIN_CHECK_LAYERS layers (one LLLLLG period) on TRAIN_RANKS_D ranks,
+# phase 16 (a)'s corpus, batch and schedule for TRAIN_RANKS_STEPS steps,
+# against the same run on one process; (b) phase 16 (b)'s float32 step on
+# TRAIN_RANKS_CHECK_D ranks; (c) the launcher under torchrun; (d) the
+# dry-run
+TRAIN_RANKS_D, TRAIN_RANKS_STEPS, TRAIN_RANKS_CHECK_D = 4, 4, 2
+# (a)'s losses against one process's: bf16, a rank's rows through other
+# GEMM shapes and the grads summed in another order; 3.07e-4 was read
+# (PERF.md)
+TRAIN_RANKS_LOSS_RTOL = 1e-3
+# the device type of phase 17's tensors (a rehearsal on the CPU sets "cpu")
+CARD = "cuda"
+
+
+def train_ranks_corpus():
+    """The launcher's synthetic corpus (``launch.train.train``'s)."""
+    from repro_torch.data.corpus import synth_token_corpus
+
+    return synth_token_corpus(200_000, 255, seed=0, dup_fraction=0.02, dup_span=64)[0]
+
+
+def train_ranks_run(model, mesh, tokens, ranks=None):
+    """Phase 17 (a)'s run of ``model`` on ``mesh``: the launcher's init
+    (seed 0 on the card), loader and schedule, ``TRAIN_RANKS_STEPS`` steps,
+    each timed between synchronizations (and barriers on D ranks).  Returns
+    (losses, walls, the state's bytes on this rank, peak bytes)."""
+    import torch
+
+    from repro_torch.config import ShardingPolicy, TrainConfig
+    from repro_torch.core import distributed
+    from repro_torch.data.loader import DeterministicLoader
+    from repro_torch.models.params import tensor_leaves
+    from repro_torch.sharding.placement import placement
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import TrainState, make_train_step
+
+    dev = torch.device(CARD, 0)
+    steps = TRAIN_RANKS_STEPS
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=max(steps // 10, 1),
+                       decay_steps=steps)
+    step, sspecs, _ = make_train_step(model, mesh, ShardingPolicy(), tcfg, TRAIN_BATCH,
+                                      TRAIN_SEQ, donate=False)
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    state = TrainState(params, adamw_init(params))
+    del params
+    if ranks is not None:
+        state = placement(sspecs, mesh, ranks).shard(state)
+    torch.cuda.empty_cache()
+    state_bytes = sum(t.numel() * t.element_size() for t in tensor_leaves(state))
+    loader = DeterministicLoader(tokens, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(steps):
+        batch = loader.batch_at(i)
+        torch.cuda.synchronize()
+        if ranks is not None:
+            distributed.barrier(ranks)
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return losses, walls, state_bytes, torch.cuda.max_memory_allocated()
+
+
+def _train_ranks_init(rank, d, work):
+    """Join the ``d`` gloo ranks rendezvousing at ``work``, on the card."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(work, 'rdzv')}",
+                            rank=rank, world_size=d)
+
+
+def train_ranks_worker(rank, d, work):
+    """One gloo rank of phase 17 (a) (a ``torch.multiprocessing`` spawn
+    target) on the card.  Writes ``rank{rank}.pkl``."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import get_arch
+    from repro_torch.core import distributed
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import make_mesh
+
+    _train_ranks_init(rank, d, work)
+    try:
+        cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS)
+        distributed.reset_traffic()
+        tokens = np.load(os.path.join(work, "tokens.npy"))
+        losses, walls, state_bytes, peak = train_ranks_run(
+            Model(cfg), make_mesh((d, 1), ("data", "model")), tokens, distributed.world())
+        out = dict(losses=losses, walls=walls, state_bytes=state_bytes, peak=peak,
+                   traffic=dict(distributed.TRAFFIC))
+        torch.cuda.synchronize()
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_ranks_check_worker(rank, d, work):
+    """One gloo rank of phase 17 (b): phase 16 (b)'s state, batch and
+    float32 step on ``d`` ranks; rank 0 also takes the step on its own and
+    holds the gathered state to it.  Writes ``rank{rank}.pkl``."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import ShardingPolicy, TrainConfig, get_arch
+    from repro_torch.core import distributed
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.placement import placement
+    from repro_torch.sharding.rules import make_mesh
+    from repro_torch.train.step import make_train_step
+
+    _train_ranks_init(rank, d, work)
+    try:
+        dev = torch.device(CARD, 0)
+        ranks = distributed.world()
+        mesh = make_mesh((d, 1), ("data", "model"))
+        cfg32 = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS,
+                                    param_dtype="float32", compute_dtype="float32")
+        model = Model(cfg32)
+        state = train_state(model.init(torch.Generator(dev).manual_seed(1), device=dev),
+                            torch.Generator(dev).manual_seed(16))
+        rng = np.random.default_rng(16)
+        shape = (TRAIN_CHECK_BATCH, TRAIN_CHECK_LEN)
+        batch = {"tokens": rng.integers(1, cfg32.vocab_size, shape).astype(np.int32),
+                 "labels": rng.integers(1, cfg32.vocab_size, shape).astype(np.int32)}
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, decay_steps=20)
+        step, sspecs, _ = make_train_step(model, mesh, ShardingPolicy(), tcfg,
+                                          TRAIN_CHECK_BATCH, TRAIN_CHECK_LEN, donate=False)
+        place = placement(sspecs, mesh, ranks)
+        local = place.shard(state)
+        if rank:
+            del state
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        distributed.barrier(ranks)
+        t0 = time.perf_counter()
+        new, met = step(local, batch)
+        torch.cuda.synchronize()
+        out = dict(wall=time.perf_counter() - t0)
+        whole = place.unshard(new)
+        if rank == 0:  # phase 16 (b)'s step on this one process
+            one = make_train_step(model, make_mesh((1, 1), ("data", "model")),
+                                  ShardingPolicy(), tcfg, TRAIN_CHECK_BATCH,
+                                  TRAIN_CHECK_LEN, donate=False)[0]
+            ref_new, ref_met = one(state, batch)
+            errs = train_metrics_close("17 (b) D ranks vs one process", met, ref_met)
+            errs["state"] = train_close("17 (b) D ranks vs one process", whole, ref_new,
+                                        TRAIN_STATE_TOL)
+            out["errs"] = errs
+        dist.barrier()
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_launcher_ranks(work, d=TRAIN_RANKS_CHECK_D):
+    """``repro_torch.launch.train`` under ``torchrun`` at ``d`` ranks on the
+    card, ``TRAIN_TINY`` with ``--ckpt``, then ``--resume`` further: both
+    exit 0, rank 0 alone prints, the checkpoints are there."""
+    ckpt = os.path.join(work, "ckpt")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(d), "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_TINY, "--batch", "4", "--seq", "32", "--ckpt", ckpt]
+    outs = []
+    t0 = time.perf_counter()
+    for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+        proc = subprocess.run(base + extra, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 17: (c) torchrun exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        outs.append((proc.stdout.splitlines(),
+                     [x for x in proc.stderr.splitlines() if x.startswith("process group:")]))
+    dt = time.perf_counter() - t0
+    (first, group), (second, _) = outs
+    steps = sorted(os.listdir(ckpt))
+    if (len(first) != 3 or not first[0].endswith(f"devices={d}")
+            or not first[1].endswith("(4 steps, 0 retries)")
+            or not second[1].endswith("(6 steps, 0 retries)")
+            or steps != ["step_00000004", "step_00000006"]):
+        raise AssertionError(f"phase 17: (c) printed {first} then {second}; {steps}")
+    log(f"phase 17: (c) torchrun --nproc-per-node {d} repro_torch.launch.train --arch "
+        f"{TRAIN_TINY} --ckpt, then --resume to step 6: exit 0 twice in {dt:.1f} s; "
+        f"{group}; {first}; resumed: {second[1]}; checkpoints {steps}")
+
+
+def phase_train_ranks(dev, ref16=None):
+    """Phase 17 (see the module docstring).  ``ref16``: phase 16 (a)'s peak
+    and step wall, printed beside the dry-run's memory (None when phase 16
+    did not run).  Returns the SA kernels' launches (none may launch)."""
+    import concurrent.futures
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ShapeConfig, ShardingPolicy, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import make_mesh
+
+    reset_launch_counts()
+    gib = 2.0 ** 30
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS)
+    d = TRAIN_RANKS_D
+    shape = ShapeConfig("phase17", TRAIN_SEQ, TRAIN_BATCH, "train")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_ranks_") as work:
+        # (a) D ranks against one process
+        tokens = train_ranks_corpus()
+        np.save(os.path.join(work, "tokens.npy"), tokens)
+        torch.cuda.empty_cache()
+        losses1, walls1, bytes1, peak1 = train_ranks_run(
+            Model(cfg), make_mesh((1, 1), ("data", "model")), tokens)
+        free_card()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(d, work, train_ranks_worker, timeout=600)
+        dt = time.perf_counter() - t0
+        r0 = ranks[0]
+        for rank, r in enumerate(ranks[1:], 1):
+            if r["losses"] != r0["losses"]:
+                raise AssertionError(f"phase 17: (a) rank {rank}'s losses {r['losses']} are "
+                                     f"not rank 0's {r0['losses']}")
+        err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], losses1, strict=True))
+        if not np.isfinite(r0["losses"]).all() or err > TRAIN_RANKS_LOSS_RTOL:
+            raise AssertionError(f"phase 17: (a) losses {r0['losses']} against one "
+                                 f"process's {losses1}")
+        dry = dryrun.memory_parts(Model(cfg), shape, make_mesh((d, 1), ("data", "model")),
+                                  ShardingPolicy(), 0.0)
+        if any(r["state_bytes"] != dry["state"] for r in ranks):
+            raise AssertionError(f"phase 17: (a) state bytes a rank "
+                                 f"{[r['state_bytes'] for r in ranks]} != the dry-run's "
+                                 f"{dry['state']}")
+        wall = [max(r["walls"][i] for r in ranks) for i in range(TRAIN_RANKS_STEPS)]
+        step_d, step_1 = float(np.median(wall[1:])), float(np.median(walls1[1:]))
+        tok = TRAIN_BATCH * TRAIN_SEQ
+        log(f"phase 17: (a) {TRAIN_ARCH} bf16 {TRAIN_CHECK_LAYERS} layers "
+            f"({Model(cfg).num_params()} params), {TRAIN_RANKS_STEPS} steps of "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} (lr {TRAIN_LR} cosine), {d} gloo ranks on one card "
+            f"(spawn to exit {dt:.1f} s) against one process: losses {[round(x, 4) for x in r0['losses']]} "
+            f"against {[round(x, 4) for x in losses1]} (max rel |err| {err:.2e}, every rank "
+            f"rank 0's); step walls (largest rank) {[round(x, 4) for x in wall]} s, median "
+            f"past the first {step_d:.4f} s ({tok / step_d:.0f} tokens/s) against "
+            f"{step_1:.4f} s ({tok / step_1:.0f} tokens/s; one process's first step "
+            f"{walls1[0]:.2f} s); peak a rank "
+            f"{[round(r['peak'] / gib, 2) for r in ranks]} GiB against {peak1 / gib:.2f}; "
+            f"state a rank {r0['state_bytes']} B = the dry-run's (4, 1) figure "
+            f"{dry['state']:.0f} B, one process {bytes1} B; bytes a rank sent over the "
+            f"{TRAIN_RANKS_STEPS} steps through the all-gathers "
+            f"{r0['traffic']['gather_bytes']} and the reduce-scatters (gloo's "
+            f"reduce_scatter_tensor on CUDA tensors) {r0['traffic']['scatter_bytes']}")
+        # (b) phase 16 (b)'s float32 step on fewer ranks, a spawn of their own,
+        # beside (c), the launcher under torchrun (both spend most of their
+        # wall starting processes)
+        work_b = os.path.join(work, "b")
+        os.makedirs(work_b)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            launcher = pool.submit(train_launcher_ranks, work)
+            t0 = time.perf_counter()
+            ranks_b = spawn_ranks(TRAIN_RANKS_CHECK_D, work_b, train_ranks_check_worker,
+                                  timeout=600)
+            dt_b = time.perf_counter() - t0
+            launcher.result()
+        e = ranks_b[0]["errs"]
+        log(f"phase 17: (b) {TRAIN_ARCH} float32 (TF32 off), {TRAIN_CHECK_LAYERS} layers, "
+            f"phase 16 (b)'s step ({TRAIN_CHECK_BATCH}x{TRAIN_CHECK_LEN}, drawn moments) on "
+            f"{TRAIN_RANKS_CHECK_D} gloo ranks (one row a rank; spawn to exit {dt_b:.1f} s), "
+            f"step {max(r['wall'] for r in ranks_b):.3f} s: loss |err| {e['loss']:.3e}, "
+            f"grad_norm {e['grad_norm']:.3e}, lr {e['lr']:.3e}, every leaf of the gathered "
+            f"state within {e['state']:.3e} of its scale of the one-process step's "
+            f"(tolerances {LM_TOL} / {TRAIN_NORM_TOL} / {TRAIN_STATE_TOL}; (c) ran beside it)")
+    # (d) the dry-run: the launcher's flag, and phase 16 (a)'s shape on (1, 1)
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as lm_train
+
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        lm_train.main(["--arch", TRAIN_ARCH, "--shape", "train_4k", "--dry-run"])
+    line = printed.getvalue().strip()
+    if "'status': 'ok'" not in line:
+        raise AssertionError(f"phase 17: (d) --dry-run printed {line}")
+    full = get_arch(TRAIN_ARCH)
+    counts, how = dryrun.count(full, shape)
+    parts = dryrun.memory_parts(Model(full), shape, make_mesh((1, 1), ("data", "model")),
+                                ShardingPolicy(), counts["activations"])
+    measured = (f"{ref16['peak'] / gib:.2f} GiB measured (two states: the launcher keeps the "
+                f"old state, donate=False)" if ref16 else "not measured in this run")
+    log(f"phase 17: (d) launch.train --arch {TRAIN_ARCH} --shape train_4k --dry-run "
+        f"({time.perf_counter() - t0:.1f} s): {line}; phase 16 (a)'s shape "
+        f"({TRAIN_BATCH}x{TRAIN_SEQ}, remat {full.remat}) on (1, 1): dry-run peak "
+        f"{sum(parts.values()) / gib:.2f} GiB (" + ", ".join(
+            f"{k} {v / gib:.2f}" for k, v in parts.items()) + f"; {how}) against {measured}; "
+        f"{smi}")
+    launched = launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"phase 17: an SA kernel launched: {launched}")
+    return {f"lm {TRAIN_ARCH} train ranks": launched}
 
 
 AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
@@ -3835,7 +4238,9 @@ def main(argv) -> int:
     those sizes; ``--ranks READS LOG2 D``: phases 1-2 and then phase 13 at
     those sizes on D ranks; ``--ranks-ooc READS D``: phases 1-2 and then
     phase 14 at READS reads on D ranks; ``--lm``: phases 1-2 and then
-    phase 15; ``--train``: phases 1-2 and then phase 16; ``--nccl``: phases 1-2 and then ``phase_nccl`` on four cards.
+    phase 15; ``--train``: phases 1-2 and then phase 16; ``--train-ranks``:
+    phases 1-2 and then phase 17; ``--nccl``: phases 1-2 and then
+    ``phase_nccl`` on four cards.
     None of these prints a result line (``--nccl-rank`` is one rank of
     ``--nccl``)."""
     import torch
@@ -3846,6 +4251,16 @@ def main(argv) -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.data.corpus import synth_dna_reads, synth_token_corpus
+
+    # Python may run with PYTHONDONTWRITEBYTECODE set and no bytecode beside
+    # torch's sources: each process this script starts (the ranks, torchrun
+    # and its workers, the launchers) then compiles torch anew, about 9 s a
+    # wave of four on the card's 8-core host.  They share one bytecode cache
+    # in the checkout instead.
+    pycache = os.path.join(HERE, "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache
+    sys.dont_write_bytecode, sys.pycache_prefix = False, pycache
     from repro_torch.kernels import _build
 
     if argv[:1] == ["--nccl-rank"] and len(argv) == 2:
@@ -3928,6 +4343,12 @@ def main(argv) -> int:
         log(f"phase 16: {time.perf_counter() - t0:.1f} s")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if argv == ["--train-ranks"]:
+        t0 = time.perf_counter()
+        phase_train_ranks(dev)
+        log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if argv[:1] == ["--ranks"] and len(argv) == 4:
         t0 = time.perf_counter()
         phase_ranks(dev, int(argv[1]), int(argv[2]), int(argv[3]))
@@ -4002,8 +4423,12 @@ def main(argv) -> int:
     counts.update(phase_lm(dev))
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts.update(phase_train(dev))
+    train_counts, ref16 = phase_train(dev)
+    counts.update(train_counts)
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(phase_train_ranks(dev, ref16))
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "prefix_pack": ("src/repro_torch/kernels/csrc/prefix_pack.cu",

@@ -14,7 +14,10 @@ The port mirrors the ``repro`` package module by module and gives the same
 suffix array, ``Footprint``, ``stats``, LCP array and query answers.  Its LM
 serving path (``repro_torch.models``, ``repro_torch.serve.engine``,
 ``python -m repro_torch.launch.lm_serve --arch ...``) gives ``repro``'s
-logits, caches and engine schedule on the same weights.  It imports ``torch`` and numpy,
+logits, caches and engine schedule on the same weights; its training side
+(``repro_torch.train``, ``python -m repro_torch.launch.train``, on one
+process or on D ranks under ``torchrun``) and dry-run
+(``python -m repro_torch.launch.dryrun``) follow ``repro``'s.  It imports ``torch`` and numpy,
 never ``jax`` or ``repro``.  Entry points run on ``cuda:0`` unless the caller
 passes ``device="cpu"``.
 

@@ -22,6 +22,12 @@ its raw 2-byte words.  ``meta.msgpack`` holds ``step``, ``treedef``,
   * every array is written as its global view, so a restart may place it
     anywhere: ``restore`` puts each leaf on the device of the target tree's
     leaf, or on ``device``;
+  * on D ranks (``shardings``, a ``sharding.placement.Placement``: the
+    tree holds each rank's slices) ``save`` is collective: every cut leaf
+    is all-gathered, one at a time, and rank 0 alone writes the whole
+    leaves, the same files a one-process save of the whole state writes
+    (a blocking save returns on every rank once they are published);
+    ``restore`` reads the whole leaves on every rank and keeps its slices;
   * atomic publish: writes go to ``.tmp``, then ``core.integrity.publish_dir``
     renames and fsyncs; partial checkpoints are never visible;
   * ``keep`` newest checkpoints are retained, older ones pruned.
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.msgpack_codec import packb, unpackb
+from repro_torch.core import distributed
 from repro_torch.core.integrity import publish_dir
 from repro_torch.core.pipeline_exec import PipelineExecutor, PipelineTask
 from repro_torch.models.params import tensor_leaves, tree_unflatten
@@ -98,21 +105,34 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             blocking: bool = False):
-        """Snapshot to host, then write in the background."""
+             blocking: bool = False, shardings=None):
+        """Snapshot to host, then write in the background.  ``shardings``:
+        the placement of a tree of rank slices (every rank calls ``save``;
+        rank 0 writes, the others get None)."""
         leaves = tensor_leaves(tree)
-        host = [_host(t) for t in leaves]  # device -> host (the blocking part)
-        meta = {
-            "step": int(step),
-            "treedef": json.dumps(treedef_repr(tree)),
-            "shapes": [list(t.shape) for t in leaves],
-            "dtypes": [dtype_name(t.dtype) for t in leaves],
-            "extra": extra or {},
-        }
-        fut = self._pool.submit(self._write, step, host, meta)
-        self._last = fut
-        if blocking:
-            fut.result()
+        ranks = shardings.ranks if shardings is not None else None
+        if ranks is not None and ranks.size > 1:
+            whole = [distributed.gather_along(t, dim, ranks) if dim is not None else t
+                     for t, dim in zip(leaves, shardings.dims, strict=True)]
+            host = [_host(t) for t in whole] if ranks.rank == 0 else None
+            del whole
+        else:
+            host = [_host(t) for t in leaves]  # device -> host (the blocking part)
+        fut = None
+        if host is not None:
+            meta = {
+                "step": int(step),
+                "treedef": json.dumps(treedef_repr(tree)),
+                "shapes": [list(h.shape) for h in host],
+                "dtypes": [dtype_name(t.dtype) for t in leaves],
+                "extra": extra or {},
+            }
+            fut = self._pool.submit(self._write, step, host, meta)
+            self._last = fut
+            if blocking:
+                fut.result()
+        if blocking and ranks is not None:
+            distributed.barrier(ranks)  # published before any rank goes on
         return fut
 
     def _write(self, step, host, meta):
@@ -156,11 +176,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target_tree: Any, step: Optional[int] = None, device=None):
+    def restore(self, target_tree: Any, step: Optional[int] = None, device=None,
+                shardings=None):
         """Load into the structure of ``target_tree`` (tensors; ``meta``
         ones need a ``device``).  Each leaf goes to ``device`` when given,
-        else to its target leaf's device (``repro``'s ``shardings`` place
-        leaves on a mesh; one process holds every leaf whole).
+        else to its target leaf's device.  ``shardings`` (``repro``'s places
+        leaves on a mesh): the placement of a ``target_tree`` of rank
+        slices; each rank keeps its slices of the whole leaves read.
         Returns (tree, extra_metadata).
         """
         self.wait()
@@ -174,12 +196,14 @@ class CheckpointManager:
         if len(leaves) != len(meta["shapes"]):
             raise ValueError(f"checkpoint has {len(meta['shapes'])} leaves, target has "
                              f"{len(leaves)} — structure mismatch")
+        wants = (shardings.whole_shapes(target_tree) if shardings is not None
+                 else [tuple(t.shape) for t in leaves])
         out = []
         for i, ref in enumerate(leaves):
             shape, dtype = tuple(meta["shapes"][i]), _torch_dtype(meta["dtypes"][i])
-            if shape != tuple(ref.shape):
+            if shape != tuple(wants[i]):
                 raise ValueError(f"leaf {i}: checkpoint shape {shape} != target "
-                                 f"{tuple(ref.shape)}")
+                                 f"{tuple(wants[i])}")
             word = _RAW_WORDS.get(dtype, dtype)
             buf = bytearray(os.path.getsize(os.path.join(path, f"arr_{i}.bin")))
             with open(os.path.join(path, f"arr_{i}.bin"), "rb") as f:
@@ -189,5 +213,7 @@ class CheckpointManager:
             dev = torch.device(device) if device is not None else ref.device
             if dev.type == "meta":
                 raise ValueError("restoring into meta tensors needs a device")
+            if shardings is not None:
+                t = shardings.take(t, i).clone()
             out.append(t.to(dev))
         return tree_unflatten(target_tree, out), meta["extra"]

@@ -11,9 +11,10 @@ The LM side: copies of ``AttentionConfig``, ``MoEConfig``, ``SSMConfig`` and
 (``register_arch``, ``get_arch``, ``list_archs``), which imports
 ``repro_torch.configs`` on first use as ``repro``'s imports
 ``repro.configs`` (``tests/test_torch_lm_configs.py`` holds every
-registered config to ``repro``'s field for field).  ``scan_layers`` and
-``remat`` are kept for the configs' sake; the port runs its layers eagerly
-and ignores both.
+registered config to ``repro``'s field for field).  ``remat`` is honoured
+in the train forward (``models/transformer.py``: each block under
+``torch.utils.checkpoint``); ``scan_layers`` is kept for the configs' sake
+and does nothing, since the port runs its layers in a Python loop.
 
 The training and serving side: copies of ``ShapeConfig`` with
 ``LM_SHAPES``, ``MeshConfig``, ``ShardingPolicy``, ``TrainConfig`` and
@@ -102,7 +103,8 @@ class ArchConfig:
     act: str = "silu"  # silu => SwiGLU, gelu => plain GeLU MLP
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    # compile policies of the JAX package; the port accepts and ignores them
+    # scan_layers: a compile policy of the JAX package, accepted and unused;
+    # remat: what the train forward's checkpointed blocks keep
     scan_layers: bool = True
     remat: str = "nothing_saveable"  # none | nothing_saveable | dots_saveable
     # sequence-chunked cross entropy: never materialize full (B,S,V) logits

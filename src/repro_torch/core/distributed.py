@@ -23,9 +23,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-# Bytes this process has sent the other ranks through ``exchange`` and
-# ``all_gather`` since the last :func:`reset_traffic`, and its exchanges.
-TRAFFIC = {"exchange_bytes": 0, "exchanges": 0, "gather_bytes": 0}
+# Bytes this process has sent the other ranks through ``exchange``,
+# ``all_gather`` and ``reduce_scatter`` since the last :func:`reset_traffic`,
+# and its exchanges.
+TRAFFIC = {"exchange_bytes": 0, "exchanges": 0, "gather_bytes": 0, "scatter_bytes": 0}
 
 
 def reset_traffic() -> None:
@@ -152,6 +153,69 @@ def all_gather(x: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
     dist.all_gather(list(out.unbind(0)), x, group=ranks.group)
     TRAFFIC["gather_bytes"] += x.numel() * x.element_size() * (ranks.size - 1)
     return out
+
+
+def reduce_scatter(x: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """This rank's block of the sum over the ranks of ``x`` (D, ...):
+    ``sum_j x_j[rank]``, ``x[0]`` at one rank.  One ``reduce_scatter_tensor``
+    (gloo takes CUDA tensors for it too, staged through host memory)."""
+    if x.shape[0] != ranks.size:
+        raise ValueError(f"reduce_scatter: {x.shape[0]} blocks over {ranks.size} rank(s)")
+    if ranks.size == 1:
+        return x[0]
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    # the blocks flat: the op cuts dim 0 of its input into D
+    dist.reduce_scatter_tensor(out.view(-1), x.view(-1), group=ranks.group)
+    TRAFFIC["scatter_bytes"] += out.numel() * out.element_size() * (ranks.size - 1)
+    return out
+
+
+def gather_along(x: torch.Tensor, dim: int, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in rank
+    order: the whole of a leaf cut into D slices along ``dim``."""
+    if ranks.size == 1:
+        return x
+    parts = all_gather(x.movedim(dim, 0), ranks)  # (D, n, ...)
+    return parts.reshape(-1, *parts.shape[2:]).movedim(0, dim)
+
+
+def scatter_along(x: torch.Tensor, dim: int, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum over the ranks of ``x``:
+    :func:`reduce_scatter` of a leaf cut into D slices along ``dim``."""
+    if ranks.size == 1:
+        return x
+    n = x.shape[dim]
+    if n % ranks.size:
+        raise ValueError(f"a dim of {n} does not split over {ranks.size} ranks")
+    blocks = x.movedim(dim, 0).reshape(ranks.size, n // ranks.size, *x.shape[:dim],
+                                       *x.shape[dim + 1:])
+    return reduce_scatter(blocks, ranks).movedim(0, dim)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather along dim 0 whose backward is the reduce-scatter (sum) of
+    the incoming grad: each rank gets the grads every rank's rows took."""
+
+    @staticmethod
+    def forward(ctx, x, ranks):
+        ctx.ranks = ranks
+        return gather_along(x, 0, ranks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return scatter_along(grad, 0, ctx.ranks), None
+
+
+def gather_rows(x: torch.Tensor, ranks: Ranks = SINGLE) -> torch.Tensor:
+    """Every rank's rows of ``x`` (equal shapes), stacked in rank order along
+    dim 0, differentiably: the grad of a rank's rows is the sum of what every
+    rank's use of them gives."""
+    if ranks.size == 1:
+        return x
+    return _GatherRows.apply(x, ranks)
 
 
 def _all_reduce(x: torch.Tensor, ranks: Ranks, op: str) -> torch.Tensor:

@@ -255,7 +255,17 @@ def _route(p, xt, m: MoEConfig):
     return top_p / top_p.sum(dim=-1, keepdim=True), top_e, probs
 
 
-def moe(p, x, m: MoEConfig):
+def expert_counts(expert: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """How many pairs each expert got: ``torch.bincount(expert,
+    minlength=num_experts)`` for experts below ``num_experts``, as a
+    scatter-add, which has a kernel on the ``meta`` device too (the
+    dry-run's)."""
+    ones = torch.ones_like(expert, dtype=torch.int64)
+    return torch.zeros(num_experts, dtype=torch.int64, device=expert.device).scatter_add_(
+        0, expert.long(), ones)
+
+
+def moe(p, x, m: MoEConfig, token_ranks=None):
     """x: (B, S, d) -> (B, S, d).
 
     1. top-k routing -> (T*k) (expert, token) pairs;
@@ -263,7 +273,20 @@ def moe(p, x, m: MoEConfig):
        before it); capacity = ceil(T*k/E * cf), computed on the host;
     3. tokens gathered into (E, C, d), batched expert products, each pair's
        output weighted by its gate; pairs past capacity are dropped.
+
+    ``token_ranks`` (a ``core.distributed.Ranks``): the ranks a batch's
+    rows are spread over, this rank's rows being the ``rank``-th equal block.
+    The dispatch then runs over every rank's tokens in rank order, the
+    global batch's (its capacity from the global T, as ``repro``'s one
+    dispatch under GSPMD), and the rank keeps its own rows' outputs; the
+    gather's backward sums the grads of a rank's rows over the ranks.
     """
+    if token_ranks is not None and token_ranks.size > 1:
+        from repro_torch.core.distributed import gather_rows
+
+        b = x.shape[0]
+        out = moe(p, gather_rows(x, token_ranks), m)
+        return out[token_ranks.rank * b: (token_ranks.rank + 1) * b]
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -277,7 +300,7 @@ def moe(p, x, m: MoEConfig):
 
     order = torch.argsort(expert, stable=True)
     e_sorted = expert[order]
-    hist = torch.bincount(expert, minlength=e_count)
+    hist = expert_counts(expert, e_count)
     start = torch.cumsum(hist, 0) - hist
     slot_in_e = torch.arange(n, device=x.device) - start[e_sorted]
     ok = slot_in_e < cap

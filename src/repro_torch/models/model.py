@@ -129,14 +129,17 @@ class Model(nn.Module):
             return xlstm.forward(self.cfg, params, tokens=tokens, embeds=embeds)
         return transformer.forward(self.cfg, params, tokens=tokens, embeds=embeds)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, denom=None, token_ranks=None):
+        """(loss, aux) of ``batch``; ``denom`` and ``token_ranks`` are a D-rank
+        step's (``transformer.loss_fn``)."""
         batch = dict(zip(batch, self._tensors(params, *batch.values()), strict=True))
         if not self.is_xlstm:
-            return transformer.loss_fn(self.cfg, params, batch)
+            return transformer.loss_fn(self.cfg, params, batch, denom, token_ranks)
         logits = xlstm.forward(self.cfg, params, tokens=batch.get("tokens"),
                                embeds=batch.get("embeds"))
         labels = batch["labels"]
-        loss = torch.sum(transformer._nll(logits, labels)) / np.prod(labels.shape)
+        denom = np.prod(labels.shape) if denom is None else denom
+        loss = torch.sum(transformer._nll(logits, labels)) / denom
         return loss, {"loss": loss}
 
     # -- serving ----------------------------------------------------------

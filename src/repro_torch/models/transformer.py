@@ -6,9 +6,15 @@ stacked ``(L, ...)`` parameters, layer ``i`` reading ``p[i]`` of every
 leaf, so ``repro``'s parameter tree carries across as a plain copy.  The
 per-layer windows are data, as in ``repro``: ``window_schedule`` encodes
 gemma3's 5:1 local:global pattern and Mixtral's SWA.  ``repro``'s
-``lax.scan`` over layers is a Python loop here; ``cfg.remat`` and
-``cfg.scan_layers`` are compile policies of jax that change no value, so
-the port accepts them and ignores them.
+``lax.scan`` over layers is a Python loop here, so ``cfg.scan_layers`` (a
+compile policy of jax that changes no value) is accepted and does nothing.
+``cfg.remat`` is honoured in the train forward, as ``repro``'s
+``jax.checkpoint`` of each block: under autograd each block runs inside
+``torch.utils.checkpoint`` (``"nothing_saveable"``: only the block's input
+is kept and the block is recomputed in the backward; ``"dots_saveable"``:
+the matmul outputs are kept too, by a selective-checkpoint policy;
+``"none"``: no checkpoint).  It changes what the backward keeps, not a
+value: the recomputed block gives the same tensors.
 
 Interfaces (functions of (cfg, params, inputs)):
   forward      : full-sequence causal logits
@@ -21,6 +27,7 @@ pytree with the same values, which would copy every layer's cache a step.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -28,7 +35,8 @@ import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import layers, ssm
-from repro_torch.models.params import ParamDef, stack_layer_defs, tree_map
+from repro_torch.models.params import ParamDef, stack_layer_defs, tensor_leaves, tree_map
+
 
 def dtype_of(name: str) -> torch.dtype:
     """A config's dtype name (``"bfloat16"``, ``"float32"``) as a torch dtype."""
@@ -113,16 +121,16 @@ def unembed(cfg: ArchConfig, params, x):
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg: ArchConfig, p, x):
+def _ffn(cfg: ArchConfig, p, x, token_ranks=None):
     h_in = layers.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
     if "moe" in p:
-        return x + layers.moe(p["moe"], h_in, cfg.moe)
+        return x + layers.moe(p["moe"], h_in, cfg.moe, token_ranks)
     if "mlp" in p:
         return x + layers.mlp(p["mlp"], h_in, cfg.act)
     return x
 
 
-def _block_train(cfg: ArchConfig, p, x, window: int):
+def _block_train(cfg: ArchConfig, p, x, window: int, token_ranks=None):
     a_in = layers.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     delta = torch.zeros_like(x)
     if "attn" in p:
@@ -131,22 +139,58 @@ def _block_train(cfg: ArchConfig, p, x, window: int):
     if "mamba" in p:  # hymba: parallel attention + SSM heads, fused mean
         m_out, _ = ssm.mamba_scan(p["mamba"], a_in, cfg)
         delta = (delta + m_out) * 0.5 if "attn" in p else m_out
-    return _ffn(cfg, p, x + delta)
+    return _ffn(cfg, p, x + delta, token_ranks)
 
 
-def forward_hidden(cfg: ArchConfig, params, tokens=None, embeds=None):
-    """Forward up to the final norm (no logits) — used by chunked CE."""
+# the ops whose outputs ``dots_saveable`` keeps: what einsum and matmul
+# dispatch to (jax's dot_general)
+MATMUL_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in MATMUL_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, block):
+    """``block`` under ``cfg.remat`` (``repro``'s ``_remat``): checkpointed
+    when autograd records it, plain otherwise (serving, prefill)."""
+    if cfg.remat == "none":
+        return block
+    if cfg.remat not in ("nothing_saveable", "dots_saveable"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    from torch.utils import checkpoint as ckpt
+
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_saveable)
+               if cfg.remat == "dots_saveable" else ckpt.noop_context_fn)
+
+    def run(p, x, *args):
+        if not torch.is_grad_enabled() or not (
+                x.requires_grad or any(t.requires_grad for t in tensor_leaves(p))):
+            return block(p, x, *args)
+        return ckpt.checkpoint(block, p, x, *args, use_reentrant=False, context_fn=context)
+
+    return run
+
+
+def forward_hidden(cfg: ArchConfig, params, tokens=None, embeds=None, token_ranks=None):
+    """Forward up to the final norm (no logits) — used by chunked CE.
+    ``token_ranks``: see ``layers.moe``."""
     x = embed_inputs(cfg, params, tokens, embeds)
     cdt = x.dtype
     windows = window_schedule(cfg, x.shape[1])
+    block = _remat(cfg, lambda p, h, w: _block_train(cfg, p, h, w, token_ranks))
     for i in range(cfg.num_layers):
-        x = _block_train(cfg, layer_params(params, i, cdt), x, int(windows[i]))
+        x = block(layer_params(params, i, cdt), x, int(windows[i]))
     return layers.rmsnorm(params["ln_out"], x, cfg.norm_eps)
 
 
-def forward(cfg: ArchConfig, params, tokens=None, embeds=None):
+def forward(cfg: ArchConfig, params, tokens=None, embeds=None, token_ranks=None):
     """Causal full-sequence forward.  Returns logits (B, S, V)."""
-    return unembed(cfg, params, forward_hidden(cfg, params, tokens, embeds))
+    return unembed(cfg, params, forward_hidden(cfg, params, tokens, embeds, token_ranks))
 
 
 def _nll(logits, labels):
@@ -156,28 +200,35 @@ def _nll(logits, labels):
     return logz - gold
 
 
-def loss_fn(cfg: ArchConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
-    """Next-token cross entropy.  batch: {tokens|embeds, labels, mask?}."""
+def loss_fn(cfg: ArchConfig, params, batch, denom=None,
+            token_ranks=None) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy.  batch: {tokens|embeds, labels, mask?}.
+
+    ``denom``: the loss's denominator when ``batch`` is a rank's part of a
+    larger batch (that batch's token count, or its mask's sum clamped at
+    1); by default this batch's own.  ``token_ranks``: see ``layers.moe``."""
     if cfg.loss_chunk:
         x = forward_hidden(cfg, params, tokens=batch.get("tokens"),
-                           embeds=batch.get("embeds"))
-        return chunked_ce(cfg, params, x, batch["labels"], batch.get("mask"))
-    logits = forward(cfg, params, tokens=batch.get("tokens"), embeds=batch.get("embeds"))
+                           embeds=batch.get("embeds"), token_ranks=token_ranks)
+        return chunked_ce(cfg, params, x, batch["labels"], batch.get("mask"), denom)
+    logits = forward(cfg, params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                     token_ranks=token_ranks)
     labels = batch["labels"]
     mask = batch.get("mask")
     nll = _nll(logits, labels)
     if mask is not None:
         nll = nll * mask
-        denom = torch.clamp(torch.sum(mask), min=1.0)
-    else:
-        denom = np.prod(labels.shape)
+    if denom is None:
+        denom = (torch.clamp(torch.sum(mask), min=1.0) if mask is not None
+                 else np.prod(labels.shape))
     loss = torch.sum(nll) / denom
     return loss, {"loss": loss, "ntokens": denom}
 
 
-def chunked_ce(cfg: ArchConfig, params, x_final, labels, mask=None):
+def chunked_ce(cfg: ArchConfig, params, x_final, labels, mask=None, denom=None):
     """Sequence-chunked cross entropy: the (B, C, V) logits chunk is the
-    largest live value; full (B, S, V) logits never exist."""
+    largest live value; full (B, S, V) logits never exist.  ``denom`` as in
+    ``loss_fn``."""
     b, s, _ = x_final.shape
     c = min(cfg.loss_chunk or s, s)
     if s % c:
@@ -191,7 +242,7 @@ def chunked_ce(cfg: ArchConfig, params, x_final, labels, mask=None):
         nll = _nll(unembed(cfg, params, x_final[:, lo: lo + c]), lc) * mc
         tot = tot + torch.sum(nll)
         cnt = cnt + torch.sum(mc)
-    loss = tot / torch.clamp(cnt, min=1.0)
+    loss = tot / (torch.clamp(cnt, min=1.0) if denom is None else denom)
     return loss, {"loss": loss, "ntokens": cnt}
 
 

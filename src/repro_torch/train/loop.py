@@ -12,9 +12,15 @@ restores it onto the state's devices, replays the loader to the saved step
 (free: batches are pure functions of the step), and continues.  Without a
 ``state`` the model is drawn by ``model.init`` from ``generator`` (a
 ``torch.Generator`` seeded with ``seed`` on ``device`` when None) on
-``device`` (the card by default).  ``repro``'s ``state_shardings`` place a
-restored state on a mesh; one process holds it whole on the state's
-devices.
+``device`` (the card by default).
+
+On D ranks, ``state_shardings`` is the state's placement
+(``sharding.placement``; ``repro``'s ``state_shardings`` place the state on
+a mesh): every rank draws the same whole state (or is given it) and keeps
+its slices, a resume restores each rank's slices, and the checkpoints are
+collective saves that rank 0 writes.  The losses are the global batch's on
+every rank; the ``StepMonitor`` (its straggler warnings, the result's
+``monitor``) runs on rank 0 alone, the others report ``{}``.
 """
 from __future__ import annotations
 
@@ -60,9 +66,12 @@ def run_training(
     seed: int = 0,
     generator: Optional[torch.Generator] = None,
     device=None,
+    state_shardings=None,
 ) -> LoopResult:
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-    monitor = StepMonitor()
+    place = state_shardings
+    lead = place is None or place.ranks.rank == 0
+    monitor = StepMonitor() if lead else None
     retries = 0
     restored_from = None
 
@@ -72,9 +81,11 @@ def run_training(
             generator = torch.Generator(dev).manual_seed(seed)
         params = model.init(generator, device=dev)
         state = TrainState(params=params, opt=adamw_init(params))
+    if place is not None:
+        state = place.shard(state)
     start = 0
     if resume and mgr is not None and mgr.latest_step() is not None:
-        state, extra = mgr.restore(state)
+        state, extra = mgr.restore(state, shardings=place)
         start = int(extra.get("step", mgr.latest_step()))
         restored_from = start
         log.info("resumed from step %d", start)
@@ -93,24 +104,29 @@ def run_training(
             nonlocal retries
             retries += 1
 
-        monitor.start()
+        if monitor is not None:
+            monitor.start()
         new_state, metrics = retry_step(one_step, on_retry=on_retry)
-        info = monitor.stop(step)
-        if info.get("straggler"):
-            log.warning("straggler step %d: %.3fs", step, info["sec"])
+        if monitor is not None:
+            info = monitor.stop(step)
+            if info.get("straggler"):
+                log.warning("straggler step %d: %.3fs", step, info["sec"])
         state = new_state  # transactional replace only on success
         losses.append(float(metrics["loss"]))
         step += 1
 
         if mgr is not None and step % ckpt_every == 0:
-            mgr.save(step, state, extra={"step": step})
+            mgr.save(step, state, extra={"step": step}, shardings=place)
         if preempt_at is not None and step >= preempt_at:
             # preemption hook: force a final checkpoint and stop
             if mgr is not None:
-                mgr.save(step, state, extra={"step": step}, blocking=True)
-            return LoopResult(step, losses, monitor.summary(), restored_from,
-                              retries)
+                mgr.save(step, state, extra={"step": step}, blocking=True, shardings=place)
+            return LoopResult(step, losses, _summary(monitor), restored_from, retries)
 
     if mgr is not None:
-        mgr.save(steps, state, extra={"step": steps}, blocking=True)
-    return LoopResult(steps, losses, monitor.summary(), restored_from, retries)
+        mgr.save(steps, state, extra={"step": steps}, blocking=True, shardings=place)
+    return LoopResult(steps, losses, _summary(monitor), restored_from, retries)
+
+
+def _summary(monitor: Optional[StepMonitor]) -> Dict[str, Any]:
+    return monitor.summary() if monitor is not None else {}

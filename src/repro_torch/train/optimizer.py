@@ -77,15 +77,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in _leaves(tree)))
 
 
-def adamw_update(tcfg: TrainConfig, params, grads, opt, inplace: bool = False):
+def adamw_update(tcfg: TrainConfig, params, grads, opt, inplace: bool = False,
+                 grad_norm=None):
     """One AdamW step with global-norm clipping.  Returns (params, opt,
     {"lr", "grad_norm"}).  ``inplace`` writes the results into ``params``'
     and ``opt``'s tensors (leaf by leaf, so a leaf's temporaries are the
     only extra memory) and returns those trees; the params must then share
-    one dtype, which the new params keep."""
+    one dtype, which the new params keep.  ``grad_norm``: the global norm,
+    where the trees are a rank's slices of the whole (a D-rank step);
+    ``global_norm(grads)`` by default."""
     step = opt["step"] + 1
     lr = lr_schedule(tcfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.tensor(tcfg.grad_clip, dtype=torch.float32, device=gn.device)
     scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
     bc1 = 1 - tcfg.beta1 ** step.to(torch.float32)

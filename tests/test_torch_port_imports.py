@@ -77,6 +77,15 @@ SLICE_MODULES = [
     "repro_torch.sharding.rules",
     "repro_torch.launch.specs",
     "repro_torch.launch.train",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.perf",
+    "repro_torch.sharding.placement",
+    "repro_torch.analysis",
+    "repro_torch.analysis.hlo",
+    "repro_torch.analysis.corrected",
+    "repro_torch.analysis.roofline",
+    "repro_torch.analysis.report",
 ]
 EXAMPLES = ["torch_quickstart", "torch_sa_build", "torch_dedup_corpus", "torch_serve_lm",
             "torch_train_lm"]

@@ -137,8 +137,8 @@ def test_resolve_axes_falls_back_as_repro_does():
 
 def test_step_factories_return_repros_specs():
     """make_train_step / make_prefill_step / make_decode_step's spec trees on
-    a (1, 1) mesh are repro's shardings' specs; a larger mesh is refused by
-    the train step (training over D ranks is not ported)."""
+    a (1, 1) mesh are repro's shardings' specs; a larger mesh needs as many
+    ranks of a process group, so one process is refused by the train step."""
     name = "tiny-hymba"
     model, ref_model = Model(config.get_arch(name)), RefModel(ref_config.get_arch(name))
     mesh, ref_mesh = make_mesh((1, 1), ("data", "model")), _stand_in((1, 1), ("data", "model"))
@@ -170,7 +170,7 @@ def test_step_factories_return_repros_specs():
     pos = torch.full((2,), 8, dtype=torch.int32)
     got_d, _ = dec(params, cache, toks[:, :1], pos)
     assert torch.equal(got_d, model.decode_step(params, want_c, toks[:, :1], pos)[0])
-    with pytest.raises(ValueError, match="D ranks"):
+    with pytest.raises(ValueError, match="over 1 rank"):
         make_train_step(model, make_mesh((2, 1), ("data", "model")), pol,
                         config.TrainConfig(), 4, 16)
 
