@@ -5,6 +5,7 @@
     python3 chip_smoke.py --stream-reads 5000 12000  # phase 9's streaming build only
     python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
     python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
+    python3 chip_smoke.py --replay-ab PARENT_TREE 3  # phase 9's chunked replay, A/B
     python3 chip_smoke.py --merges 5000 20  # phase 10 only, at these sizes
     python3 chip_smoke.py --resume 50000 26  # phase 11 only, at these sizes
     python3 chip_smoke.py --build-modes 1000000 26  # phase 12 only, at these sizes
@@ -24,8 +25,12 @@ each of which fails loudly:
    ``torch.equal``, at the kernel-test shapes (``prefix_pack``'s edge
    lengths, views and wide tokens, ``pattern_search`` on the CPU tests'
    corpora and boundary patterns, ``pattern_cmp``'s and
-   ``merge_path_ranks``' edge rows, ``merge_path_ranks``' tiles of sorted
-   runs, ``bucket_hist``'s edge splitters (keys at offsets 0 and 1), and the
+   ``merge_path_ranks``' edge rows, ``pattern_cmp_level`` on
+   ``cases.level_case``'s random and edge rows at K = 4, 6 and 40 (with and
+   without ``levels``, as a first and a later level, and with no row in
+   play) and at B = 4096, K = 26 (timed with
+   CUDA events and the profiler's device time), ``merge_path_ranks``' tiles
+   of sorted runs, ``bucket_hist``'s edge splitters (keys at offsets 0 and 1), and the
    int32-max fault inputs of ``bucket_hist`` and ``bitonic_sort_tiles``
    included, ``bitonic_sort_tiles``' edge cases (tiles 1-4, ragged tiles of
    4096 to 2^20, a tile above n, equal keys, int32 extremes, views) and its
@@ -86,8 +91,12 @@ each of which fails loudly:
    corpus, manifest), reopened with ``verify="eager"`` on the chunked
    store (a 1 GiB cache) and on the memory store, and phase 7's seed
    batches are answered again: the ranges must equal the in-memory
-   index's, ``pattern_cmp`` must launch on the chunked store (its round
-   loop) and ``pattern_search`` on the memory store.  After phase 8, a streaming
+   index's, ``pattern_cmp_level`` must launch once a window level on the
+   chunked store (its round loop), ``pattern_cmp`` never, and
+   ``pattern_search`` on the memory store.  The chunked replay prints a
+   level's wall split into the fetch and the rest (host clock around
+   ``fetch_windows``) and, for one more batch under the profiler, the
+   kernels and copies a level.  After phase 8, a streaming
    build
    (``store_backend="chunked"`` at a quarter of the corpus bytes, S = 4,
    LCP) of ``STREAM_READS`` reads (or, with ``--stream-reads``, each
@@ -249,7 +258,9 @@ each of which fails loudly:
    beside (a)'s measured peak.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  ``--merges READS LOG2`` runs
+line is ``{"ok": true, "device": {...}}``.  ``--replay-ab PARENT PAIRS``
+replays phase 9's chunked store from the checkout at PARENT and from this one
+in turns (``replay_ab``; no result line).  ``--merges READS LOG2`` runs
 phases 1-2 and then phase 10 alone at those sizes, ``--resume READS LOG2``
 phase 11 alone (against unjournaled builds it makes itself; no result line),
 ``--build-modes READS LOG2`` phase 12 alone (against in-core scheme builds it
@@ -349,7 +360,7 @@ RANKS_READS_BUILD = f"{RANKS_D} ranks reads {RANKS_READS // 1000}K x 200 scheme 
 # the full-size run whose main path each kernel lies on
 KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
                 "bucket_hist": RANKS_READS_BUILD, "pattern_search": READS_QUERY,
-                "pattern_cmp": "reads reopened chunked", "merge_path": READS_OOC}
+                "pattern_cmp_level": "reads reopened chunked", "merge_path": READS_OOC}
 
 
 def log(msg: str) -> None:
@@ -436,6 +447,18 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         args = [torch.from_numpy(a).to(dev) for a in arrays]
         check_equal(f"pattern_cmp {name}", pc_mod.pattern_cmp(*args, block=block),
                     ref.pattern_cmp_ref(*args))
+    for name in cases.LEVEL_CASES:
+        for k in cases.LEVEL_K:
+            args = [torch.from_numpy(a).to(dev)
+                    for a in cases.level_args(cases.level_case(name, k), k)]
+            idle = list(args)
+            idle[0], idle[1] = args[0][:0], torch.full_like(args[1], -1)
+            for what, call in (("", args), (" no row in play", idle)):
+                for first in (True, False):
+                    for levels in (call[9], None):
+                        check_level(f"pattern_cmp_level {name} k={k}{what} "
+                                    f"{'first' if first else 'later'} level, levels "
+                                    f"{levels is not None}", [*call[:9], levels], first)
     merge_cases = [(f"c={c} w={w} block={block}", cases.merge_inputs(c, w), block)
                    for c, w, block in cases.MERGE_SHAPES]
     merge_cases += [(f"edge {name}", cases.merge_edge_inputs(name), 256)
@@ -484,7 +507,8 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         "prefix_pack's edge lengths, views and wide tokens, pattern_search on "
         "the CPU tests' corpora, "
         "window_gather's edge cases (misaligned views included), "
-        "the edge rows of pattern_cmp and merge_path_ranks, merge_path_ranks' "
+        "the edge rows of pattern_cmp, pattern_cmp_level and merge_path_ranks, "
+        "merge_path_ranks' "
         "tiles of sorted runs, bucket_hist's edge splitters, the int32-max "
         "fault inputs of bucket_hist and bitonic_sort_tiles, and "
         "bitonic_sort_tiles' edge cases and tiles above 2048")
@@ -561,6 +585,7 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         f"{device_ms(lambda: pc_mod.pattern_cmp(*args), 'pattern_cmp'):.4f} ms "
         f"a launch (profiler, 200 launches); CUDA events "
         f"{out['pattern_cmp']['ms']:.4f} ms a call, host launch path included")
+    out["pattern_cmp_level"] = level_timing(dev, k)
     # merge_path_ranks at the merge's full tile, C = 4 x 4096: four words (the
     # depth-0 key words and the index words) and the widest row a reads
     # merge can build (every window level, the tie column, the index words);
@@ -586,6 +611,81 @@ def phase_kernels(dev, reads_corpus, text_tokens):
             f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
             f"({o['bound_by']}){lib}, "
             f"max|err| {o['max_abs_err']}")
+    return out
+
+
+def check_level(name, args, first=True):
+    """``pattern_cmp_level`` against its plain version on copies of the same
+    card tensors, as a compare's first level or (``first`` False, ``t``
+    passed as ``t_in``) a later one: every tensor it writes bit-equal.
+    Returns the kernel's copies and the largest |kernel - plain| over
+    them."""
+    from repro_torch.kernels import pattern_cmp as pc_mod
+    from repro_torch.kernels import ref
+
+    got = [a if a is None else a.clone() for a in args]
+    want = [a if a is None else a.clone() for a in args]
+    if not first:
+        got[3], want[3] = got[2], want[2]
+    pc_mod.pattern_cmp_level(*got)
+    ref.pattern_cmp_level_ref(*want)
+    written = [(what, i) for what, i in (("t_in", 2), ("t", 3), ("cmp", 7), ("nxt", 8),
+                                         ("levels", 9)) if got[i] is not None]
+    err = max(max_abs_err(got[i], want[i]) for _, i in written)
+    for what, i in written:
+        check_equal(f"{name}: {what}", got[i], want[i])
+    return got, err
+
+
+def level_timing(dev, k):
+    """``pattern_cmp_level`` at the engine's largest level: every row of a
+    4096-pattern batch in play at its first level
+    (``cases.level_case("random")``), K = 26, no ``levels`` (the engine
+    passes none).  A first level reads ``t_in`` and writes ``t`` apart, so
+    every call does the same work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import pattern_cmp as pc_mod
+
+    q = QUERY_BATCH
+    case = cases.level_case("random", k, q=q)
+    rows = np.arange(q, dtype=np.int64)  # every row in play
+    args = [torch.from_numpy(a).to(dev) for a in (
+        cases.level_windows(case["suffix"], rows, case["t0"] // k, k),
+        rows.astype(np.int32), case["t0"], np.zeros(q, np.int64), case["pi"],
+        case["plen"], case["pat_rows"], np.zeros(q, np.int32),
+        np.zeros(q, np.int64))] + [None]
+    got, err = check_level(f"pattern_cmp_level B={q}", args)
+    # bytes: the window and pattern tokens this data needs (in-range columns
+    # up to the first mismatch; a pattern token is int64, read in place),
+    # per row pos, t_in, t, pi, its pattern's length, cmp and nxt;
+    # operations: one compare per token read
+    t = args[2]
+    plen = args[5][args[4]]
+    base = torch.div(t, k, rounding_mode="floor") * k
+    lo, hi = (t - base).clamp(min=0), torch.clamp(plen - base, max=k)
+    first = got[3] - base
+    needed = torch.where(got[7] != 0, first - lo + 1, hi - lo).clamp(min=0)
+    tokens = int(needed.sum())
+    bound_ms, bound_by = byte_or_op_bound((4 + 8) * tokens + q * (4 + 8 + 8 + 8 + 8 + 4 + 8),
+                                          tokens)
+
+    def kernel():
+        pc_mod.pattern_cmp_level(*args)
+
+    out = dict(
+        max_abs_err=err,
+        ms=time_ms(kernel, 200),
+        plain_ms=time_ms(lambda: ref.pattern_cmp_level_ref(*args), 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"B={q}, K={k}, {tokens} window tokens needed",
+    )
+    log(f"phase 3: pattern_cmp_level B={q}: device time "
+        f"{device_ms(kernel, 'pattern_cmp_level'):.4f} ms a launch (profiler, 200 "
+        f"launches); CUDA events {out['ms']:.4f} ms a call, host launch path "
+        f"included")
     return out
 
 
@@ -1321,6 +1421,21 @@ def sample_seeds(idx, rng, count, m):
     return out
 
 
+def count_batches(idx, rng, n_seeds, m):
+    """Phase 7's count batches: ``n_seeds`` seeds of ``m`` tokens in batches
+    of ``QUERY_BATCH``, a ``HOT_FRACTION`` of each from a hot set."""
+    import numpy as np
+
+    hot = sample_seeds(idx, rng, max(1, n_seeds // 50), m)
+    batches = []
+    for _ in range(n_seeds // QUERY_BATCH):
+        batch = sample_seeds(idx, rng, QUERY_BATCH, m)
+        for i in np.flatnonzero(rng.random(QUERY_BATCH) < HOT_FRACTION):
+            batch[i] = hot[int(rng.integers(0, len(hot)))]
+        batches.append(batch)
+    return batches
+
+
 def phase_queries(dev, reads_corpus, text_tokens):
     """The query path at full size: build with LCP, count batches, align."""
     import numpy as np
@@ -1347,13 +1462,7 @@ def phase_queries(dev, reads_corpus, text_tokens):
         eng = idx.engine
         torch.cuda.synchronize()
         t_engine = time.perf_counter() - t0
-        hot = sample_seeds(idx, rng, max(1, n_seeds // 50), m)
-        batches = []
-        for _ in range(n_seeds // QUERY_BATCH):
-            batch = sample_seeds(idx, rng, QUERY_BATCH, m)
-            for i in np.flatnonzero(rng.random(QUERY_BATCH) < HOT_FRACTION):
-                batch[i] = hot[int(rng.integers(0, len(hot)))]
-            batches.append(batch)
+        batches = count_batches(idx, rng, n_seeds, m)
         # the align batch: seeds of the full length (a seed cut short by its
         # suffix's end can match tens of millions of positions)
         seeds = [p for p in sample_seeds(idx, rng, 2 * QUERY_BATCH, m) if p.size == m]
@@ -1372,9 +1481,9 @@ def phase_queries(dev, reads_corpus, text_tokens):
         counts[name] = launched
         if launched["pattern_search"] <= 0:
             raise AssertionError(f"{name}: pattern_search not launched: {launched}")
-        if eng.num_shards == 1 and launched["pattern_cmp"]:
-            raise AssertionError(f"{name}: pattern_cmp launched on the memory store "
-                                 f"with one shard: {launched}")
+        if eng.num_shards == 1 and (launched["pattern_cmp"] or launched["pattern_cmp_level"]):
+            raise AssertionError(f"{name}: a round-loop compare launched on the memory "
+                                 f"store with one shard: {launched}")
 
         # the plain compare over the same backend and arrays, in a store of
         # its own so its traffic counters start from 0 as the kernel's did
@@ -1733,19 +1842,29 @@ def phase_reopen(dev, reads_index):
             eng = opened.engine  # SA, LCP and LLCP/RLCP onto the card
             torch.cuda.synchronize()
             t_engine = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            got = [eng.ranges(b) for b in batches]
-            t_query = time.perf_counter() - t0
+            got, split = replay_split(eng, batches)
+            t_query = split["wall_s"]
             launched = launch_counts()
             if not all(np.array_equal(g, w) for g, w in zip(got, want, strict=True)):
                 raise AssertionError(f"phase 9: reopened ({backend}) ranges != "
                                      "the in-memory index's")
-            kernel = "pattern_cmp" if backend == "chunked" else "pattern_search"
+            kernel = "pattern_cmp_level" if backend == "chunked" else "pattern_search"
             if launched[kernel] <= 0:
                 raise AssertionError(f"phase 9: reopened ({backend}): {kernel} "
                                      f"not launched: {launched}")
-            counts[f"reads reopened {backend}"] = launched
             st = eng.engine_stats()
+            if backend == "chunked" and not (
+                    launched["pattern_cmp_level"] == st["compare_rounds"]
+                    and launched["pattern_cmp"] == 0):
+                raise AssertionError(f"phase 9: reopened (chunked): a pattern_cmp_level "
+                                     f"launch a window level and no pattern_cmp launch "
+                                     f"expected: {launched}, compare_rounds "
+                                     f"{st['compare_rounds']}")
+            counts[f"reads reopened {backend}"] = launched
+            if backend == "chunked":
+                log_split("phase 9: reopened [chunked store]", split)
+                log_level_launches("phase 9: reopened [chunked store]",
+                                   profile_levels(eng, batches[0]))
             n_q = len(batches) * QUERY_BATCH
             log(f"phase 9: reopened [{backend} store, verify=eager"
                 + (f", cache {budget} B" if budget else "") + f"]: open "
@@ -1762,6 +1881,107 @@ def phase_reopen(dev, reads_index):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return counts
+
+
+def replay_split(eng, batches):
+    """``eng.ranges`` of each batch, the host clock around every
+    ``CorpusStore.fetch_windows``, every ``_compare_level`` call (a level's
+    launch, from the engine's dispatch on) and every ``_compare_batch``
+    call (the round loop's window levels): ``(ranges, split)``, ``split``
+    holding the wall, the levels made (``compare_rounds``) and the seconds
+    in the fetches, the level calls and the compares."""
+    import torch
+
+    store = eng.store
+    spent = {"fetch_s": 0.0, "level_s": 0.0, "compare_s": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return call
+
+    # an engine older than pattern_cmp_level compares a level in _cmp_rows
+    level = "_compare_level" if hasattr(eng, "_compare_level") else "_cmp_rows"
+    store.fetch_windows = timed(store.fetch_windows, "fetch_s")
+    setattr(eng, level, timed(getattr(eng, level), "level_s"))
+    eng._compare_batch = timed(eng._compare_batch, "compare_s")
+    levels0 = eng.stats["compare_rounds"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [eng.ranges(b) for b in batches]
+        wall = time.perf_counter() - t0
+    finally:
+        del store.fetch_windows, eng._compare_batch
+        delattr(eng, level)
+    n_q = sum(len(b) for b in batches)
+    return got, dict(wall_s=wall, queries_per_s=n_q / wall,
+                     levels=eng.stats["compare_rounds"] - levels0, **spent)
+
+
+def log_split(what, split):
+    levels = max(split["levels"], 1)
+    log(f"{what}: {split['levels']} window levels in {split['wall_s']:.3f} s "
+        f"({split['queries_per_s']:.0f} queries/s): a level "
+        f"{1e3 * split['compare_s'] / levels:.3f} ms, of it the fetch "
+        f"{1e3 * split['fetch_s'] / levels:.3f} ms, the level call "
+        f"{1e3 * split['level_s'] / levels:.3f} ms and the rest "
+        f"{1e3 * (split['compare_s'] - split['fetch_s'] - split['level_s']) / levels:.3f} "
+        f"ms (host clock); "
+        f"outside the levels {split['wall_s'] - split['compare_s']:.3f} s")
+
+
+def profile_levels(eng, batch):
+    """Launches a window level of ``eng``'s round loop.  One batch under the
+    profiler with the result cache emptied (every pattern searched), its
+    ``_compare_batch`` calls' arguments caught; then those calls again under
+    the profiler, alone (the levels, each call's set-up included, without
+    the rounds around them).  Kernels and copies a level of both, and the
+    commonest kernels a level of the second."""
+    eng.cache = type(eng.cache)(0)
+    calls = []
+    real = eng._compare_batch
+
+    def catch(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    def per_level(launches, levels):
+        copies = sum(n for key, n in launches.items()
+                     if key.startswith(("Memcpy", "Memset")))
+        return (sum(launches.values()) - copies) / levels, copies / levels
+
+    eng._compare_batch = catch
+    levels0 = eng.stats["compare_rounds"]
+    try:
+        dt, _, batch_launches = profiled(lambda: eng.ranges(batch))
+    finally:
+        del eng._compare_batch
+    levels1 = eng.stats["compare_rounds"]
+    _, _, loop_launches = profiled(lambda: [real(*a, **kw) for a, kw in calls])
+    levels = max(eng.stats["compare_rounds"] - levels1, 1)
+    top = sorted(loop_launches.items(), key=lambda kv: -kv[1])[:12]
+    kernels, copies = per_level(loop_launches, levels)
+    batch_kernels, batch_copies = per_level(batch_launches, max(levels1 - levels0, 1))
+    return dict(profiled_levels=levels, profiled_calls=len(calls), profiled_wall_s=dt,
+                kernels_per_level=kernels, copies_per_level=copies,
+                batch_kernels_per_level=batch_kernels,
+                batch_copies_per_level=batch_copies,
+                top={key[:60]: n / levels for key, n in top})
+
+
+def log_level_launches(what, prof):
+    log(f"{what}: one batch profiled, cache emptied (wall "
+        f"{prof['profiled_wall_s']:.3f} s): {prof['profiled_levels']} window levels "
+        f"in {prof['profiled_calls']} compares; the compares alone "
+        f"{prof['kernels_per_level']:.2f} kernels and {prof['copies_per_level']:.2f} "
+        f"copies a level, the whole batch {prof['batch_kernels_per_level']:.2f} and "
+        f"{prof['batch_copies_per_level']:.2f}; a level: "
+        + ", ".join(f"{n:.2f} {key}" for key, n in prof["top"].items()))
 
 
 def streaming_name(reads: int) -> str:
@@ -4089,6 +4309,33 @@ AB_BUILD = ("-m", "repro_torch.launch.sa_build", "--reads", str(OOC_READS),
             "--read-len", str(FULL_READ_LEN), "--superblocks", str(OOC_SUPERBLOCKS))
 
 
+def ab_turns(pairs, run, names=("parent", "change")):
+    """``run(name, i)`` for the two ``names`` in turns (a, b, b, a, ...),
+    ``pairs`` times each: ``{name: [result, ...]}``."""
+    out = {name: [] for name in names}
+    for i in range(pairs):
+        for name in names if i % 2 == 0 else names[::-1]:
+            out[name].append(run(name, i))
+    return out
+
+
+def ab_wins(before, after, better):
+    """The pairs whose ``after`` result is ``better(after, before)``."""
+    return sum(better(b, a) for a, b in zip(before, after, strict=True))
+
+
+def tree_run(root, *args, **kwargs):
+    """``python args`` in the checkout at ``root``, its ``src`` on the path."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    return subprocess.run([sys.executable, *args], cwd=root, env=env, **kwargs)
+
+
+def build_tree(root):
+    """Build the kernels of the checkout at ``root``."""
+    tree_run(root, "-c", "from repro_torch.kernels import _build; _build.build()",
+             check=True)
+
+
 def merge_ab(parent, pairs):
     """Phase 8's reads cell (no LCP) through ``repro_torch.launch.sa_build``,
     from the checkout at ``parent`` and from this one, in turns (parent,
@@ -4099,28 +4346,139 @@ def merge_ab(parent, pairs):
     import statistics
 
     trees = {"parent": os.path.abspath(parent), "change": HERE}
+    build_tree(trees["parent"])
 
-    def run(tree, *args):
-        env = dict(os.environ, PYTHONPATH=os.path.join(trees[tree], "src"))
-        return subprocess.run([sys.executable, *args], cwd=trees[tree], env=env,
-                              capture_output=True, text=True, check=True).stdout
+    def run(tree, i):
+        out = tree_run(trees[tree], *AB_BUILD, capture_output=True, text=True,
+                       check=True).stdout
+        wall = float(re.search(r" time=([0-9.]+)s", out).group(1))
+        merge = float(re.search(r"'t_merge_s': ([0-9.]+)", out).group(1))
+        log(f"merge A/B: run {i} {tree}: wall {wall:.2f} s, t_merge_s {merge:.2f}")
+        return wall, merge
 
-    run("parent", "-c", "from repro_torch.kernels import _build; _build.build()")
-    walls = {tree: [] for tree in trees}
-    for i in range(pairs):
-        for tree in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
-            out = run(tree, *AB_BUILD)
-            wall = float(re.search(r" time=([0-9.]+)s", out).group(1))
-            merge = float(re.search(r"'t_merge_s': ([0-9.]+)", out).group(1))
-            walls[tree].append((wall, merge))
-            log(f"merge A/B: run {i} {tree}: wall {wall:.2f} s, t_merge_s {merge:.2f}")
+    walls = ab_turns(pairs, run)
     for j, what in enumerate(("wall", "t_merge_s")):
         for tree, runs in walls.items():
             q1, q2, q3 = statistics.quantiles([r[j] for r in runs], n=4)
             log(f"merge A/B: {tree} {what} over {len(runs)} runs: median "
                 f"{q2:.3f} s, quartiles {q1:.3f} / {q3:.3f} s")
-        wins = sum(c[j] < p[j] for p, c in zip(walls["parent"], walls["change"]))
+        wins = ab_wins(walls["parent"], walls["change"], lambda c, p: c[j] < p[j])
         log(f"merge A/B: the change's {what} is lower in {wins} of {pairs} pairs")
+
+
+REPLAY_CHILD = """
+import json, os, sys
+sys.path.insert(0, {here!r})
+import chip_smoke
+sys.path[:] = [p for p in sys.path if p != os.path.join({here!r}, "src")]
+sys.path.insert(0, {src!r})
+print("REPLAY " + json.dumps(chip_smoke.replay_child({ix!r}, {batches!r})), flush=True)
+"""
+
+
+def replay_child(ix, batches_path):
+    """One process's chunked replay for ``replay_ab``: the index at ``ix``
+    reopened as phase 9 reopens it, the batches saved at ``batches_path``
+    replayed once (``replay_split``), then one batch profiled
+    (``profile_levels``), with whichever ``repro_torch`` comes first on the
+    path."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.serve.sa_engine import SuffixArrayIndex
+
+    data = np.load(batches_path)
+    batches = [[row[:n] for row, n in zip(tok, lens, strict=True)]
+               for tok, lens in zip(data["tokens"], data["lens"], strict=True)]
+    opened = SuffixArrayIndex.open(ix, store_backend="chunked", verify="eager",
+                                   cache_budget_bytes=OPEN_CACHE_BYTES,
+                                   device=torch.device(CARD, 0))
+    eng = opened.engine
+    got, split = replay_split(eng, batches)
+    split["ranges_sum"] = int(sum(int(g.sum()) for g in got))
+    split.update(profile_levels(eng, batches[0]))
+    split["package"] = os.path.dirname(repro_torch.__file__)
+    opened.close()
+    return split
+
+
+def replay_ab(parent, pairs):
+    """Phase 9's chunked replay from the checkout at ``parent`` and from
+    this one, in turns (parent, change, change, parent, ...), ``pairs`` runs
+    of each, each run a process of its own over one saved index: phase 7's
+    reads index with LCP (the full-size reads, this tree's build) and its
+    16 count batches.  Every run's queries/s, its level split
+    (``replay_split``) and its launches a level (``profile_levels``), each
+    tree's medians and the pairs the change wins."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.corpus import synth_dna_reads
+    from repro_torch.launch.sa_build import make_config
+    from repro_torch.serve.sa_engine import SuffixArrayIndex
+
+    trees = {"parent": os.path.abspath(parent), "change": HERE}
+    for root in trees.values():
+        build_tree(root)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_replay_")
+    try:
+        n_seeds, m = QUERIES[READS_QUERY]
+        idx = SuffixArrayIndex.build(synth_dna_reads(FULL_READS, FULL_READ_LEN, seed=0),
+                                     cfg=make_config("base", "cuda", use_pallas=True),
+                                     device=torch.device(CARD, 0))
+        batches = count_batches(idx, np.random.default_rng(11), n_seeds, m)
+        ix, path = os.path.join(tmp, "reads_index"), os.path.join(tmp, "batches.npz")
+        idx.save(ix)
+        idx.close()
+        del idx
+        torch.cuda.empty_cache()
+        tokens = np.zeros((len(batches), QUERY_BATCH, m), np.int64)
+        lens = np.zeros((len(batches), QUERY_BATCH), np.int64)
+        for b, batch in enumerate(batches):
+            for i, p in enumerate(batch):
+                tokens[b, i, : p.size], lens[b, i] = p, p.size
+        np.savez(path, tokens=tokens, lens=lens)
+
+        def run(tree, i):
+            code = REPLAY_CHILD.format(here=HERE, src=os.path.join(trees[tree], "src"),
+                                       ix=ix, batches=path)
+            out = tree_run(trees[tree], "-c", code, capture_output=True, text=True)
+            if out.returncode:
+                raise RuntimeError(f"replay A/B: {tree} run {i} failed:\n"
+                                   f"{out.stderr[-4000:]}")
+            r = json.loads(next(line for line in out.stdout.splitlines()
+                                if line.startswith("REPLAY "))[7:])
+            if r["package"] != os.path.join(trees[tree], "src", "repro_torch"):
+                raise AssertionError(f"replay A/B: {tree} ran {r['package']}")
+            log_split(f"replay A/B: run {i} {tree}", r)
+            log_level_launches(f"replay A/B: run {i} {tree}", r)
+            return r
+
+        runs = ab_turns(pairs, run)
+        if len({r["ranges_sum"] for rs in runs.values() for r in rs}) != 1:
+            raise AssertionError("replay A/B: the trees' ranges differ")
+        for what in ("queries_per_s", "kernels_per_level", "copies_per_level",
+                     "batch_kernels_per_level", "batch_copies_per_level"):
+            for tree, rs in runs.items():
+                vals = [r[what] for r in rs]
+                log(f"replay A/B: {tree} {what}: median {statistics.median(vals):.3f} "
+                    f"over {len(vals)} ({', '.join(f'{v:.3f}' for v in vals)})")
+        for what in ("compare_s", "fetch_s", "level_s"):
+            for tree, rs in runs.items():
+                per = [1e3 * r[what] / r["levels"] for r in rs]
+                log(f"replay A/B: {tree} {what[:-2]} ms a level: median "
+                    f"{statistics.median(per):.3f} ({', '.join(f'{v:.3f}' for v in per)})")
+        wins = ab_wins(runs["parent"], runs["change"],
+                       lambda c, p: c["queries_per_s"] > p["queries_per_s"])
+        log(f"replay A/B: the change's queries/s higher in {wins} of {pairs} pairs; "
+            "ranges equal in every run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def gather_ab(parent, rounds):
@@ -4174,11 +4532,9 @@ def gather_ab(parent, rounds):
     corpus = torch.from_numpy(synth_dna_reads(FULL_READS, FULL_READ_LEN, seed=0)).cuda()
     k = 26
     for m in (GATHER_M, GATHER_SMALL_M):
-        times = {name: [] for name in gathers}
-        for i in range(rounds):
-            for name in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
-                o = gather_timing(gathers[name], corpus, k, m)
-                times[name].append(o["ms"])
+        runs = ab_turns(rounds, lambda name, i: gather_timing(gathers[name], corpus, k, m))
+        times = {name: [o["ms"] for o in os_] for name, os_ in runs.items()}
+        o = runs["change"][-1]
         log(f"gather A/B: M={m}, k={k}, corpus {tuple(corpus.shape)}, bound "
             f"{o['bound_ms']:.4f} ms ({o['bound_by']}); both == plain")
         rows, offs = gather_requests(*corpus.shape, m, corpus.device)
@@ -4192,7 +4548,7 @@ def gather_ab(parent, rounds):
             log(f"gather A/B: M={m} {name}: median {statistics.median(ts):.4f} ms, "
                 f"min {min(ts):.4f}, max {max(ts):.4f} over {len(ts)} "
                 f"({', '.join(f'{t:.4f}' for t in ts)}){device}")
-        wins = sum(c < p for p, c in zip(times["parent"], times["change"], strict=True))
+        wins = ab_wins(times["parent"], times["change"], lambda c, p: c < p)
         log(f"gather A/B: M={m}: the change faster in {wins} of {rounds} pairs")
     del corpus
     torch.cuda.empty_cache()
@@ -4211,19 +4567,19 @@ def gather_ab(parent, rounds):
         _build._FUNCS.clear()
         return cached(*a)
 
-    pcmp = {"cached": [], "uncached": []}
+    def timed(name, i):
+        _build.launcher = cached if name == "cached" else uncached
+        return time_ms(lambda: pc_mod.pattern_cmp(*args), 200)
+
     try:
-        for i in range(2 * rounds):
-            for name in ("cached", "uncached") if i % 2 == 0 else ("uncached", "cached"):
-                _build.launcher = cached if name == "cached" else uncached
-                pcmp[name].append(time_ms(lambda: pc_mod.pattern_cmp(*args), 200))
+        pcmp = ab_turns(2 * rounds, timed, names=("cached", "uncached"))
     finally:
         _build.launcher = cached
     for name, ts in pcmp.items():
         log(f"pattern_cmp A/B: launcher {name}: median {statistics.median(ts):.4f} ms a "
             f"call (B={QUERY_BATCH}, K={k}, 200 calls a run), min {min(ts):.4f}, max "
             f"{max(ts):.4f} over {len(ts)} ({', '.join(f'{t:.4f}' for t in ts)})")
-    wins = sum(c < u for c, u in zip(pcmp["cached"], pcmp["uncached"], strict=True))
+    wins = ab_wins(pcmp["uncached"], pcmp["cached"], lambda c, u: c < u)
     log(f"pattern_cmp A/B: cached faster in {wins} of {2 * rounds} pairs")
 
 
@@ -4232,7 +4588,8 @@ def main(argv) -> int:
     and then only phase 9's streaming build, once for each read count (a
     scaling run).  ``--merge-ab PARENT PAIRS``: phases 1-2 and then
     ``merge_ab``; ``--gather-ab PARENT ROUNDS``: phases 1-2 and then
-    ``gather_ab``; ``--merges READS LOG2``: phases 1-2 and then phase 10 at
+    ``gather_ab``; ``--replay-ab PARENT PAIRS``: phases 1-2 and then
+    ``replay_ab``; ``--merges READS LOG2``: phases 1-2 and then phase 10 at
     READS reads and a 2^LOG2-token text; ``--resume READS LOG2`` and
     ``--build-modes READS LOG2``: phases 1-2 and then phase 11 or 12 at
     those sizes; ``--ranks READS LOG2 D``: phases 1-2 and then phase 13 at
@@ -4291,6 +4648,10 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--merge-ab"] and len(argv) == 3:
         merge_ab(argv[1], int(argv[2]))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if argv[:1] == ["--replay-ab"] and len(argv) == 3:
+        replay_ab(argv[1], int(argv[2]))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if argv[:1] == ["--gather-ab"] and len(argv) == 3:
@@ -4437,6 +4798,8 @@ def main(argv) -> int:
                           "src/repro/kernels/window_gather.py:33"),
         "pattern_cmp": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
                         "src/repro/kernels/pattern_cmp.py:59"),
+        "pattern_cmp_level": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
+                              "src/repro/kernels/pattern_cmp.py:59"),
         "pattern_search": ("src/repro_torch/kernels/csrc/pattern_cmp.cu",
                            "src/repro/kernels/pattern_cmp.py:59"),
         "merge_path": ("src/repro_torch/kernels/csrc/merge_path.cu",
@@ -4446,16 +4809,19 @@ def main(argv) -> int:
         "bitonic_sort": ("src/repro_torch/kernels/csrc/bitonic_sort.cu",
                          "src/repro/kernels/bitonic_sort.py:74"),
     }
-    # no path of src/repro runs it: its launches are the sum over every
-    # main-path run, which must be 0
+    # on no main path: its launches are the sum over every main-path run,
+    # which must be 0
     no_path = {"bitonic_sort": "no path of src/repro runs it; held to its plain "
-                               "version in phase 3 only"}
+                               "version in phase 3 only",
+               "pattern_cmp": "the registry op, repro's signature; the round loop "
+                              "compares through pattern_cmp_level, so no path runs "
+                              "it; held to its plain version in phase 3 only"}
     launches = {k: (sum(c[k] for c in counts.values()) if k in no_path
                     else counts[KERNEL_BUILD[k]][k]) for k in sources}
     for k in sources:
         if k in no_path and launches[k]:
             raise AssertionError(f"{k} launched {launches[k]} times on the main "
-                                 f"paths, which no path of src/repro does")
+                                 f"paths: {no_path[k]}")
         if k not in no_path and launches[k] <= 0:
             raise AssertionError(f"{k} was not launched in the {KERNEL_BUILD[k]} run")
     log("kernels: " + "; ".join(

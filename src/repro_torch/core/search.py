@@ -4,7 +4,8 @@ The host-serial reference of the query path: suffix content is served by the
 :class:`~repro_torch.core.store.CorpusStore` and compared as packed key words
 (:func:`~repro_torch.core.store.pack_keys`), one pattern at a time.  The
 batched, LCP-accelerated path is ``repro_torch.serve.sa_engine``; its compare
-without the kernel is :func:`masked_cmp`.
+without the kernel is :func:`masked_cmp`, a window level of it
+:func:`compare_level`.
 
 The JAX package's raw-array signatures (``search_text``,
 ``count_occurrences``, ``find_occurrences``, ``align_reads``) remain as thin
@@ -87,48 +88,98 @@ def masked_cmp(sfx: torch.Tensor, pat: torch.Tensor, start: torch.Tensor,
     return cmp.to(torch.int32), matched
 
 
-def compare_levels(fetch, compare, gidx: torch.Tensor, pat_rows: torch.Tensor,
+def compare_level(win: torch.Tensor, pos: torch.Tensor, t_in: torch.Tensor,
+                  t: torch.Tensor, pi: torch.Tensor, pat_len: torch.Tensor,
+                  pat_rows: torch.Tensor, cmp: torch.Tensor, nxt: torch.Tensor,
+                  levels: Optional[torch.Tensor] = None,
+                  pat_dtype: torch.dtype = torch.int64) -> None:
+    """One window level of :func:`compare_levels`, in place on its row
+    tensors.  A row ``i`` in play (``pos[i] >= 0``) compares its suffix
+    window ``win[pos[i]]`` (level ``t_in[i] // K``) with pattern row
+    ``pi[i]``'s window at that level over ``[start, stop)``
+    (:func:`masked_cmp`); then ``t[i]`` is ``t_in[i]`` and the matched
+    tokens, ``cmp[i]`` the result, ``nxt[i]`` is ``t[i]`` while the row is
+    undecided (a tie short of ``pat_len[pi[i]]``: the next level's start)
+    and -1 once decided, and ``levels[i]`` (when given) gains one.  When
+    ``t_in`` is not ``t`` (the first level), every row out of play takes
+    ``t = t_in``, ``cmp = 0`` and ``nxt = -1``; a later level passes ``t``
+    as ``t_in`` and leaves such rows alone.  The pattern window is compared
+    in ``pat_dtype``: int32 on the kernel route, which cuts the tokens as
+    ``repro``'s kernel route does."""
+    k = win.shape[1]
+    idx = torch.nonzero(pos >= 0).squeeze(1)
+    ti, pli = t_in[idx], pat_len[pi[idx]]
+    if t_in is not t:
+        t.copy_(t_in)
+        cmp.zero_()
+        nxt.fill_(-1)
+    lv = ti // k
+    start = ti - lv * k
+    stop = torch.clamp(pli - lv * k, max=k)
+    cols = lv[:, None] * k + torch.arange(k, dtype=torch.int64, device=win.device)[None, :]
+    cc = torch.clamp(cols, max=pat_rows.shape[1] - 1)
+    pw = torch.where(cols < pli[:, None], pat_rows[pi[idx][:, None], cc], 0)
+    c, m_in = masked_cmp(win[pos[idx].long()], pw.to(pat_dtype), start, stop)
+    tn = ti + m_in
+    t[idx] = tn
+    cmp[idx] = c
+    nxt[idx] = torch.where((c == 0) & (tn < pli), tn, -1)
+    if levels is not None:
+        levels[idx] += 1
+
+
+def compare_levels(fetch, level, gidx: torch.Tensor, pat_rows: torch.Tensor,
                    pat_len: torch.Tensor, t0: torch.Tensor, pi: torch.Tensor,
                    k: int, max_levels: int,
                    levels: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trichotomy of suffix ``gidx[i]`` against pattern row ``pi[i]``,
-    ``t0[i]`` tokens already matched: one ``fetch(gidx, lv)`` of (m, k)
-    windows and one ``compare(win, pw, start, stop)`` (``masked_cmp``'s
-    contract) a window level still in play, at most ``max_levels`` levels.
+    ``t0[i]`` tokens already matched: one ``fetch(g, lv)`` of (m, k)
+    windows (``g`` and ``lv`` (m,) int64 host arrays, the level's suffixes
+    and window levels) and one ``level(win, pos, t_in, t, pi, pat_len,
+    pat_rows, cmp, nxt, levels)`` (:func:`compare_level`'s contract) a
+    window level still in play, at most ``max_levels`` levels.
 
     Returns ``(cmp, t)``: cmp in {-1, 0, +1}, 0 when the pattern is a
     prefix of the suffix, and t the matched tokens (at most the pattern's
     length).  ``levels``, when given, gains one for every level row i
     compares (the engine's ``pattern_search`` record).
+
+    The rows in play are chosen on the host, where the fetch wants them:
+    the call's suffixes, prefixes and pattern rows and lengths come over in
+    one copy, and each level after the first reads back ``nxt``.  Every
+    length in ``pat_len`` is at most ``pat_rows``' width, so no row compares
+    more levels than that width spans: the last of those levels reads
+    nothing back.
     """
     dev = gidx.device
     q = gidx.shape[0]
-    plen = pat_len[pi]
-    cols_k = torch.arange(k, dtype=torch.int64, device=dev)
-    cmp = torch.zeros(q, dtype=torch.int32, device=dev)
-    t = t0.clone()
-    undecided = t < plen  # t0 == plen: fully matched already
-    for _ in range(max_levels):
-        idx = torch.nonzero(undecided).squeeze(1)
-        if idx.numel() == 0:
-            return cmp, t
-        if levels is not None:
-            levels[idx] += 1
-        ti, pli = t[idx], plen[idx]
-        lv = ti // k
-        win = fetch(gidx[idx], lv)
-        start = ti - lv * k
-        stop = torch.clamp(pli - lv * k, max=k)
-        cols = lv[:, None] * k + cols_k[None, :]
-        cc = torch.clamp(cols, max=pat_rows.shape[1] - 1)
-        pw = torch.where(cols < pli[:, None], pat_rows[pi[idx][:, None], cc], 0)
-        c, m_in = compare(win, pw, start, stop)
-        t[idx] = ti + m_in
-        cmp[idx] = c
-        done = (c != 0) | (t[idx] >= pli)
-        undecided[idx[done]] = False
-    raise RuntimeError("batched compare overran the window bound")
+    host = torch.cat([gidx, t0, pi, pat_len]).cpu().numpy()
+    g, start, pi_h = host[:q], host[q : 2 * q], host[2 * q : 3 * q]
+    start = np.where(start < host[3 * q :][pi_h], start, -1)  # t0 == plen: matched
+    t, nxt = torch.empty_like(t0), torch.empty_like(t0)
+    cmp = torch.empty(q, dtype=torch.int32, device=dev)
+    t_in = t0
+    reach = -(-pat_rows.shape[1] // k)  # the window levels a pattern row spans
+    n_levels = min(max_levels, reach)
+    for n in range(n_levels):
+        live = np.flatnonzero(start >= 0)
+        if live.size == 0:
+            break
+        pos = np.full(q, -1, np.int32)
+        pos[live] = np.arange(live.size, dtype=np.int32)
+        win = fetch(g[live], start[live] // k)
+        level(win, torch.from_numpy(pos).to(dev), t_in, t, pi, pat_len, pat_rows,
+              cmp, nxt, levels)
+        t_in = t
+        if n + 1 < n_levels:
+            start = nxt.to("cpu", copy=True).numpy()  # a copy on the CPU too
+    else:
+        if reach > max_levels:
+            raise RuntimeError("batched compare overran the window bound")
+    if t_in is t0:  # no row in play: every pattern matched already
+        return torch.zeros(q, dtype=torch.int32, device=dev), t0.clone()
+    return cmp, t
 
 
 def bound_rounds(sa: torch.Tensor, llcp: Optional[torch.Tensor],

@@ -969,9 +969,12 @@ class CorpusStore:
 
         The JAX store serves ``request_capacity`` requests a round, one
         backend gather each; here all ``m`` are gathered at once and the
-        counters grow exactly as that loop grows them.
+        counters grow exactly as that loop grows them.  Host ``gidx`` and
+        ``depth`` stay on the host for a backend that gathers there.
         """
-        gidx = torch.as_tensor(gidx, dtype=torch.int64, device=self.device)
+        gidx = torch.as_tensor(gidx, dtype=torch.int64)
+        if not (self.backend.per_round and self.backend.host_windows):
+            gidx = gidx.to(self.device)
         m = int(gidx.shape[0])
         if m == 0:
             out = torch.zeros((0, self.k), dtype=torch.int32, device=self.device)

@@ -4,8 +4,9 @@
 per Pallas kernel of the JAX package).  Each entry names its dispatch op in
 ``repro_torch.kernels.ops`` and its plain version in
 ``repro_torch.kernels.ref``.  ``pattern_search``, the query engine's whole
-search on the card, has no entry: it has no Pallas counterpart, and lives
-beside ``pattern_cmp``, whose compare it runs in every round.
+search on the card, and ``pattern_cmp_level``, one window level of its round
+loop, have no entry: they have no Pallas counterpart, and live beside
+``pattern_cmp``, whose compare they run.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ def _wrappers() -> Dict[str, object]:
         "window_gather": window_gather.window_gather,
         "bucket_hist": bucket_hist.bucket_hist,
         "pattern_cmp": pattern_cmp.pattern_cmp,
+        "pattern_cmp_level": pattern_cmp.pattern_cmp_level,
         "pattern_search": pattern_cmp.pattern_search,
         "merge_path": merge_path.merge_path_ranks,
         "bitonic_sort": bitonic_sort.bitonic_sort_tiles,

@@ -28,6 +28,10 @@ GATHER_EDGE = ("m257", "m1000", "m1", "k1", "k40", "k100", "k1000", "rows-out",
                "view-misaligned")
 CMP_SHAPES = [(1, 4, 8), (100, 8, 32), (700, 6, 256)]  # (n, k, block)
 CMP_EDGE_K = (6, 40)  # window widths of the edge-row cases
+# pattern_cmp_level: the cases (random rows, and the edge rows of
+# ``level_case``) and the window widths they run at (40: two 32-column chunks)
+LEVEL_CASES = ("random", "edge")
+LEVEL_K = (4, 6, 40)
 MERGE_SHAPES = [(5, 2, 8), (100, 4, 32), (700, 3, 256), (256, 6, 128)]  # (c, w, block)
 MERGE_EDGE = ("duplicates", "w1", "w64", "c1", "ragged", "negative", "int32-max")
 # merge tiles built as sorted runs, as the merge builds them: R runs (20
@@ -204,6 +208,119 @@ def cmp_edge_inputs(k: int):
     start[7], stop[7] = 0, k  # whole window
     pat[7, k - 1] = sfx[7, k - 1] + 1  # a mismatch in the last column
     return sfx, pat, start, stop
+
+
+def level_case(name: str, k: int, q: int = 300):
+    """Suffixes and patterns for the engine's window levels
+    (``ops.pattern_cmp_level``): ``suffix`` (q, 3k) int32, row g the tokens
+    of suffix g (0 past its end; a window level at or past 3 is all 0),
+    pattern rows ``pat_rows`` (q_pat, lmax) and lengths ``plen`` (q_pat,)
+    int64, and per row its pattern ``pi`` and proven-equal prefix ``t0``
+    (q,) int64.  Patterns mostly copy their suffix from ``t0`` on, so first
+    mismatches land at every level.  ``"random"`` draws ``q`` rows; ``"edge"``
+    is 17 rows: ``t0 == plen`` (at and off a level boundary), patterns
+    ending mid-level and at a level's end, a pattern longer than the deepest
+    window level (its suffix's windows end in 0s), ``t0`` at a level
+    boundary and at a level's last column, pattern tokens of 2^31 and up (cut
+    to int32: 2^31 + 5 below every suffix token, 2^32 + 3 equal to a 3), a
+    pattern as long as ``lmax``, a negative suffix token, an empty pattern,
+    two rows sharing a pattern, a pattern no row compares, a suffix that
+    ends inside the deepest level, and a row tied at every level its
+    pattern spans (0s past the suffix's end).  Seeded by ``k`` and ``q``."""
+    rng = np.random.default_rng(4000 + 7 * k + q)
+    depth = 3 * k
+    if name == "random":
+        suffix = rng.integers(1, 5, size=(q, depth)).astype(np.int32)
+        ends = rng.integers(1, depth + 1, size=q)
+        suffix[np.arange(depth)[None, :] >= ends[:, None]] = 0
+        plen = rng.integers(1, depth + k, size=q).astype(np.int64)
+        t0 = (rng.random(q) * (plen + 1)).astype(np.int64)  # t0 == plen too
+        lmax = int(plen.max())
+        pat = np.zeros((q, lmax), np.int64)
+        for g in range(q):
+            src = np.concatenate([suffix[g], np.zeros(k, np.int32)])
+            row = rng.integers(1, 5, size=lmax)
+            run = rng.integers(0, depth + k)  # how far the copy runs
+            upto = min(plen[g], depth + k, run + t0[g] + 1)
+            row[:upto] = np.where(src[:upto] > 0, src[:upto], row[:upto])
+            pat[g, : plen[g]] = row[: plen[g]]
+        pi = rng.permutation(q).astype(np.int64)
+        # row i compares suffix pi[i] with pattern pi[i]: rows and patterns
+        # in different orders
+        return dict(suffix=suffix[pi], pat_rows=pat, plen=plen, pi=pi, t0=t0[pi])
+    rows = 17
+    suffix = rng.integers(1, 5, size=(rows, depth)).astype(np.int32)
+    pats, t0, pi = [], np.zeros(rows, np.int64), np.arange(rows, dtype=np.int64)
+
+    def copy(g, n, tail=()):
+        return np.concatenate([suffix[g, :n].astype(np.int64), tail]).astype(np.int64)
+
+    pats.append(copy(0, 2 * k))
+    t0[0] = 2 * k  # t0 == plen at a level boundary
+    pats.append(copy(1, k + 1))
+    t0[1] = k + 1  # t0 == plen off it
+    pats.append(copy(2, k + k // 2))  # ends mid-level: a prefix of its suffix
+    pats.append(copy(3, 2 * k))  # ends at a level's end
+    t0[3] = k - 1
+    pats.append(copy(4, 3 * k, [1] * (k + 3)))  # runs past every level
+    t0[4] = 2 * k
+    pats.append(copy(5, 3 * k))
+    t0[5] = k  # a level boundary: start 0 on level 1
+    pats.append(copy(6, 2 * k))
+    t0[6] = 2 * k - 1  # the level's last column
+    pats.append(copy(7, 1, [2**31 + 5]))  # cut to int32: below every token
+    suffix[8, 1] = 3
+    pats.append(copy(8, 1, [2**32 + 3, 9]))  # cut to 3: matches, then 9 > it
+    pats.append(copy(9, 3 * k, [2]))  # the longest pattern: lmax columns
+    suffix[10, 0] = -7
+    pats.append(np.array([(-7) + 2**32, 1], np.int64))  # cut to -7: equal
+    pats.append(np.zeros(0, np.int64))  # empty: plen 0 == t0
+    pats.append(copy(12, k // 2 + 1))
+    suffix[13], pi[13] = suffix[12], 12  # row 13 shares row 12's pattern
+    pats.append(np.array([3], np.int64))  # a pattern no row compares
+    pats.append(copy(14, 2 * k, [4, 4]))
+    t0[14] = 1
+    suffix[15, 3 * k - 1] = 0  # suffix 15 ends inside the deepest level
+    pats.append(copy(15, 3 * k - 1))
+    pats[-1][-1] = 5  # a mismatch at its last token, above every token
+    t0[15] = 2 * k + 1
+    pats.append(copy(16, 3 * k, [0] * (k + 3)))  # tied at every level, lmax long
+    plen = np.array([p.size for p in pats], np.int64)
+    pat = np.zeros((len(pats), max(1, int(plen.max()))), np.int64)
+    for i, p in enumerate(pats):
+        pat[i, : p.size] = p
+    return dict(suffix=suffix, pat_rows=pat, plen=plen, pi=pi, t0=t0)
+
+
+def level_windows(suffix: np.ndarray, gidx: np.ndarray, lv: np.ndarray,
+                  k: int) -> np.ndarray:
+    """(m, k) int32 windows of ``level_case`` suffixes ``gidx`` at levels
+    ``lv``: 0 past a suffix's tokens."""
+    width = suffix.shape[1]
+    cols = np.asarray(lv, np.int64)[:, None] * k + np.arange(k)[None, :]
+    rows = np.asarray(gidx, np.int64)[:, None]
+    return np.where(cols < width, suffix[rows, np.minimum(cols, width - 1)],
+                    0).astype(np.int32)
+
+
+def level_args(case: dict, k: int):
+    """One ``ops.pattern_cmp_level`` call's arguments, numpy, from a
+    ``level_case``, as a compare's first level: every row in play at level
+    ``t0 // k`` (``t0 == plen`` rows too) but every seventh, which is out of
+    play (``pos`` -1), the windows in a shuffled order; ``t``, ``cmp`` and
+    ``nxt`` start as junk.  Returns ``(win, pos, t_in, t, pi, pat_len,
+    pat_rows, cmp, nxt, levels)``; a later level passes ``t`` as ``t_in``."""
+    q = case["t0"].shape[0]
+    rng = np.random.default_rng(q + k)
+    live = np.flatnonzero(np.arange(q) % 7 != 3)
+    pos = np.full(q, -1, np.int32)
+    pos[live] = rng.permutation(live.size)
+    t_in = case["t0"].copy()
+    win = np.zeros((live.size, k), np.int32)
+    win[pos[live]] = level_windows(case["suffix"], live, t_in[live] // k, k)
+    return (win, pos, t_in, rng.integers(0, 9, size=q), case["pi"], case["plen"],
+            case["pat_rows"], rng.integers(-2, 3, size=q).astype(np.int32),
+            rng.integers(-1, 9, size=q), rng.integers(0, 5, size=q).astype(np.int32))
 
 
 def merge_inputs(c: int, w: int) -> np.ndarray:

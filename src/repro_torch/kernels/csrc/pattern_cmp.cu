@@ -15,15 +15,105 @@
 // 2k*4 window bytes and 8 range bytes and writes 8; there is one compare per
 // token.  Design: one warp per row.  Lanes take 32 columns at a time, test
 // their column, and __ballot_sync + __ffs give the first mismatch of the
-// chunk; __shfl_sync brings the two values there to every lane.  The loop over
-// 32-column chunks starts at the chunk holding max(start, 0) and stops at the
-// first chunk with a mismatch, so any k works and a row with an early
+// chunk; __shfl_sync brings the two values there to every lane
+// (warp_first_mismatch, which the other two kernels here share).  The loop
+// over 32-column chunks starts at the chunk holding max(start, 0) and stops
+// at the first chunk with a mismatch, so any k works and a row with an early
 // mismatch reads no further.  A row of k = 26 int32 is 104 contiguous bytes,
 // so each warp's loads are coalesced.  Lane 0 writes the two words.  The TPU
 // kernel's iota masks, row min-reduce and one-hot value gather become the
 // ballot and the shuffles.
+//
+// pattern_cmp_level: one window level of the query engine's round loop
+// (core/search.py::compare_levels), the compare and its bookkeeping in one
+// launch.  The JAX engine runs this level as host code around pattern_cmp
+// (repro/serve/sa_engine.py::_compare_batch): the pattern window gathered
+// from the pattern rows, the range, the casts, the compare and three
+// scattered writes, about 25 eager ops a level on the card.  Inputs: the
+// level's fetched windows win (m, k) int32; per engine row i (q rows) pos[i]
+// int32, its window's row in win (-1: not in play at this level), t_in[i]
+// and t[i] int64 (the matched tokens before and after the level), pi[i]
+// int64 (its pattern row); the pattern lengths pat_len (q_pat) and rows pat
+// (q_pat, lmax) int64; outputs cmp (q) int32, nxt (q) int64 and levels (q)
+// int32 or null.  A row in play takes ti = t_in[i], len = pat_len[pi[i]],
+// lv = floor(ti / k), start = ti - lv*k, stop = min(len - lv*k, k), reads
+// pattern column c as pat[pi[i], lv*k + c] (0 from len on; a column past
+// lmax reads the last, as the plain version's clamped gather) cut to int32 as
+// both packages' kernel routes cut it, finds the first mismatch as
+// pattern_cmp does, and writes t[i] = ti + matched, cmp[i], nxt[i] = t[i]
+// while the row is undecided (cmp == 0 and t[i] < len: the next level's
+// start) and -1 once decided, and, with levels, levels[i] += 1.  On the
+// first level of a compare t_in is the proven prefix t0 and t another
+// tensor: a row out of play there takes t = t_in, cmp = 0, nxt = -1.  Later
+// levels pass t as t_in too, and leave a row out of play untouched.  So one
+// launch a level is the whole of the level on the card: no set-up launch a
+// compare, no gather of the level's rows (the host sends pos, having chosen
+// the rows from nxt, which it reads back only when another level may
+// follow).  Bound: launch latency, as pattern_cmp: a level reads at most 104
+// window bytes, 104 pattern bytes and 48 bookkeeping bytes a row.  Design:
+// one warp a row, pattern tokens and the length read in place, lane 0
+// writes the row's words.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The first column c, scanning 32 columns a step from `from` (one a lane),
+// with lo <= c < hi and sfx(c) != pat(c); `none` when there is none.  Every
+// lane of the warp calls it with the same arguments and gets the same column;
+// sv and pv are the two tokens there, 0 with none.
+template <typename T, typename Sfx, typename Pat>
+__device__ __forceinline__ long long warp_first_mismatch(
+    long long from, long long lo, long long hi, long long none, const Sfx& sfx,
+    const Pat& pat, T& sv, T& pv) {
+  const unsigned FULL = 0xffffffffu;
+  const long long lane = threadIdx.x & 31;
+  for (long long c0 = from; c0 < hi; c0 += 32) {
+    const long long c = c0 + lane;
+    const bool in = c >= lo && c < hi;
+    const T a = in ? sfx(c) : T(0);
+    const T b = in ? pat(c) : T(0);
+    const unsigned mis = __ballot_sync(FULL, in && a != b);
+    if (mis) {
+      const int src = __ffs(mis) - 1;
+      sv = __shfl_sync(FULL, a, src);
+      pv = __shfl_sync(FULL, b, src);
+      return c0 + src;
+    }
+  }
+  sv = pv = T(0);
+  return none;
+}
+
+// Column c of one row of a (rows, k) int32 window matrix.
+struct WindowRow {
+  const int32_t* row;
+  __device__ int32_t operator()(long long c) const { return row[c]; }
+};
+
+// Token p of a pattern of `len` tokens held in a row of last + 1 columns: 0
+// from len on, the last column past it (the plain versions clamp their
+// gather there; the engine pads every row to at least its length).
+__device__ __forceinline__ long long pattern_token(const long long* __restrict__ row,
+                                                   long long len, long long last,
+                                                   long long p) {
+  return p < len ? row[p < last ? p : last] : 0;
+}
+
+struct PatternRow {
+  const long long* row;
+  long long len, last;
+  __device__ long long operator()(long long p) const {
+    return pattern_token(row, len, last, p);
+  }
+};
+
+// Column c of the pattern's window at token `base`, cut to int32.
+struct PatternWindow {
+  const long long* row;
+  long long len, last, base;
+  __device__ int32_t operator()(long long c) const {
+    return (int32_t)pattern_token(row, len, last, base + c);
+  }
+};
 
 __global__ void pattern_cmp_kernel(const int32_t* __restrict__ sfx,
                                    const int32_t* __restrict__ pat,
@@ -31,7 +121,6 @@ __global__ void pattern_cmp_kernel(const int32_t* __restrict__ sfx,
                                    const int32_t* __restrict__ stop,
                                    int32_t* __restrict__ out, long long b,
                                    int k) {
-  const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const long long warps_per_cta = blockDim.x >> 5;
   const long long all_warps = (long long)gridDim.x * warps_per_cta;
@@ -40,25 +129,10 @@ __global__ void pattern_cmp_kernel(const int32_t* __restrict__ sfx,
     const int s = start[row];
     const int e = stop[row];
     const int lo = max(s, 0);
-    const int hi = min(e, k);
-    const int32_t* sr = sfx + row * (long long)k;
-    const int32_t* pr = pat + row * (long long)k;
-    int first = e;
-    int32_t sv = 0, pv = 0;
-    for (int c0 = lo & ~31; c0 < hi; c0 += 32) {
-      const int c = c0 + lane;
-      const bool in = c >= lo && c < hi;
-      const int32_t a = in ? sr[c] : 0;
-      const int32_t p = in ? pr[c] : 0;
-      const unsigned mis = __ballot_sync(FULL, in && a != p);
-      if (mis) {
-        const int src = __ffs(mis) - 1;
-        first = c0 + src;
-        sv = __shfl_sync(FULL, a, src);
-        pv = __shfl_sync(FULL, p, src);
-        break;
-      }
-    }
+    int32_t sv, pv;
+    const long long first = warp_first_mismatch(
+        lo & ~31, lo, min(e, k), e, WindowRow{sfx + row * (long long)k},
+        WindowRow{pat + row * (long long)k}, sv, pv);
     if (lane == 0) {
       const int32_t cmp = first < e ? (sv < pv ? -1 : (sv > pv ? 1 : 0)) : 0;
       out[2 * row] = cmp;
@@ -78,6 +152,68 @@ extern "C" int pattern_cmp_launch(const void* sfx, const void* pat,
                        (cudaStream_t)stream>>>(
       (const int32_t*)sfx, (const int32_t*)pat, (const int32_t*)start,
       (const int32_t*)stop, (int32_t*)out, b, k);
+  return (int)cudaGetLastError();
+}
+
+__global__ void pattern_cmp_level_kernel(
+    const int32_t* __restrict__ win, int k, const int32_t* __restrict__ pos,
+    long long q, const long long* t_in, long long* t,
+    const long long* __restrict__ pi, const long long* __restrict__ pat_len,
+    const long long* __restrict__ pat, long long lmax, int32_t* __restrict__ cmp,
+    long long* __restrict__ nxt, int32_t* __restrict__ levels, int first) {
+  const int lane = threadIdx.x & 31;
+  const long long warps_per_cta = blockDim.x >> 5;
+  const long long all_warps = (long long)gridDim.x * warps_per_cta;
+  for (long long i = (long long)blockIdx.x * warps_per_cta + (threadIdx.x >> 5);
+       i < q; i += all_warps) {
+    const int j = pos[i];
+    if (j < 0) {
+      if (first && lane == 0) {
+        t[i] = t_in[i];
+        cmp[i] = 0;
+        nxt[i] = -1;
+      }
+      continue;
+    }
+    const long long ti = t_in[i], p = pi[i], len = pat_len[p];
+    // t_in may be t: every lane has read t_in[i] before lane 0 writes t[i],
+    // even for a row whose scan takes no step (no ballot in between)
+    __syncwarp();
+    const long long lq = ti / k;
+    const long long base = (ti % k != 0 && ti < 0 ? lq - 1 : lq) * k;  // floor
+    const long long s = ti - base;
+    const long long e = min(len - base, (long long)k);
+    const long long lo = max(s, 0LL);
+    int32_t sv, pv;
+    const long long first_mis = warp_first_mismatch(
+        lo & ~31LL, lo, e, e, WindowRow{win + (long long)j * k},
+        PatternWindow{pat + p * lmax, len, lmax - 1, base}, sv, pv);
+    if (lane == 0) {
+      const int32_t c = first_mis < e ? (sv < pv ? -1 : (sv > pv ? 1 : 0)) : 0;
+      const long long tn = ti + (first_mis - s);
+      t[i] = tn;
+      cmp[i] = c;
+      nxt[i] = c == 0 && tn < len ? tn : -1;
+      if (levels != nullptr) levels[i] += 1;
+    }
+  }
+}
+
+extern "C" int pattern_cmp_level_launch(const void* win, int k, const void* pos,
+                                        long long q, const void* t_in, void* t,
+                                        const void* pi, const void* pat_len,
+                                        const void* pat, long long lmax, void* cmp,
+                                        void* nxt, void* levels, int warps,
+                                        void* stream) {
+  if (q <= 0) return (int)cudaSuccess;
+  long long grid = (q + warps - 1) / warps;
+  if (grid > (1LL << 30)) grid = 1LL << 30;  // the row loop covers the rest
+  pattern_cmp_level_kernel<<<(unsigned int)grid, warps * 32, 0,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)win, k, (const int32_t*)pos, q, (const long long*)t_in,
+      (long long*)t, (const long long*)pi, (const long long*)pat_len,
+      (const long long*)pat, lmax, (int32_t*)cmp, (long long*)nxt,
+      (int32_t*)levels, t_in != t);
   return (int)cudaGetLastError();
 }
 
@@ -109,10 +245,10 @@ extern "C" int pattern_cmp_launch(const void* sfx, const void* pat,
 // round's decision is warp-uniform with no shuffle.  The compare reads 32
 // consecutive tokens of the suffix and of the pattern a step, straight from
 // the corpus from the proven-equal prefix t0 on, and a __ballot_sync + __ffs
-// gives the first mismatch, as in pattern_cmp; the two tokens there come by
-// __shfl_sync.  The levels of a compare are those the engine's window loop
-// would fetch: (level of the first mismatch, or of the pattern's last token)
-// - t0 / k + 1.  No host read, no window gather and no launch a round.
+// gives the first mismatch, as in pattern_cmp (warp_first_mismatch).  The
+// levels of a compare are those the engine's window loop would fetch: (level
+// of the first mismatch, or of the pattern's last token) - t0 / k + 1.  No
+// host read, no window gather and no launch a round.
 __device__ __forceinline__ long long corpus_token(
     const int32_t* __restrict__ corpus, bool text, long long n, long long row_len,
     long long row_stride, int sb, long long g, long long p) {
@@ -124,6 +260,18 @@ __device__ __forceinline__ long long corpus_token(
   return off < row_len ? (long long)corpus[(g >> sb) * row_stride + off] : 0;
 }
 
+// Token p of suffix g of the padded corpus.
+struct SuffixTokens {
+  const int32_t* corpus;
+  bool text;
+  long long n, row_len, row_stride;
+  int sb;
+  long long g;
+  __device__ long long operator()(long long p) const {
+    return corpus_token(corpus, text, n, row_len, row_stride, sb, g, p);
+  }
+};
+
 __global__ void pattern_search_kernel(
     const int32_t* __restrict__ corpus, int text, long long n, long long row_len,
     long long row_stride, int sb, int k, const long long* __restrict__ sa,
@@ -133,7 +281,6 @@ __global__ void pattern_search_kernel(
     const long long* __restrict__ hi_in, long long q, int upper, int R,
     long long* __restrict__ bound, int32_t* __restrict__ levels,
     int32_t* __restrict__ active) {
-  const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const long long warps_per_cta = blockDim.x >> 5;
   const long long all_warps = (long long)gridDim.x * warps_per_cta;
@@ -169,23 +316,11 @@ __global__ void pattern_search_kernel(
         int c = 0;
         long long t = t0;
         if (t0 < plen) {
-          const long long g = sa[mid];
-          long long first = plen, sv = 0, pv = 0;
-          for (long long p0 = t0; p0 < plen; p0 += 32) {
-            const long long p = p0 + lane;
-            const bool in = p < plen;
-            const long long a = in ? corpus_token(corpus, text, n, row_len,
-                                                  row_stride, sb, g, p) : 0;
-            const long long b = in ? pr[p] : 0;
-            const unsigned mis = __ballot_sync(FULL, in && a != b);
-            if (mis) {
-              const int src = __ffs(mis) - 1;
-              first = p0 + src;
-              sv = __shfl_sync(FULL, a, src);
-              pv = __shfl_sync(FULL, b, src);
-              break;
-            }
-          }
+          long long sv, pv;
+          const long long first = warp_first_mismatch(
+              t0, t0, plen, plen,
+              SuffixTokens{corpus, text != 0, n, row_len, row_stride, sb, sa[mid]},
+              PatternRow{pr, plen, lmax - 1}, sv, pv);
           c = first < plen ? (sv < pv ? -1 : 1) : 0;
           t = first;
           lv = (int)((first < plen ? first : plen - 1) / k - t0 / k + 1);

@@ -58,6 +58,20 @@ def pattern_cmp(sfx, pat, start, stop, block: int = 256):
     return _pattern_cmp(sfx, pat, start, stop, block=block)
 
 
+def pattern_cmp_level(win, pos, t_in, t, pi, pat_len, pat_rows, cmp, nxt,
+                      levels=None, block: int = 256):
+    """One window level of the engine's round loop, in place (no Pallas
+    counterpart: the JAX engine runs the level on the host around
+    ``pattern_cmp``)."""
+    if win.device.type == "cpu":
+        return ref.pattern_cmp_level_ref(win, pos, t_in, t, pi, pat_len, pat_rows,
+                                         cmp, nxt, levels)
+    from repro_torch.kernels.pattern_cmp import pattern_cmp_level as _level
+
+    return _level(win, pos, t_in, t, pi, pat_len, pat_rows, cmp, nxt, levels,
+                  block=block)
+
+
 def pattern_search(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo, hi,
                    upper, rounds, block: int = 256):
     """The whole Manber–Myers search of one bound for a batch (no Pallas

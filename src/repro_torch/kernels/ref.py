@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.config import SAConfig
 from repro_torch.core import encoding
-from repro_torch.core.search import bound_rounds, compare_levels, masked_cmp
+from repro_torch.core.search import bound_rounds, compare_level, compare_levels, masked_cmp
 from repro_torch.core.store import padded_windows
 
 
@@ -69,6 +69,16 @@ def pattern_cmp_ref(sfx, pat, start, stop):
     return torch.stack([cmp, matched.to(torch.int32)], dim=1)
 
 
+def pattern_cmp_level_ref(win, pos, t_in, t, pi, pat_len, pat_rows, cmp, nxt,
+                          levels=None) -> None:
+    """One window level of the engine's round loop, in place (the function
+    of the ``pattern_cmp_level`` kernel): ``core.search.compare_level`` with
+    the pattern tokens cut to int32, as the kernel cuts them and as
+    ``repro``'s engine does on its kernel route (``pw.astype(np.int32)``)."""
+    compare_level(win, pos, t_in, t, pi, pat_len, pat_rows, cmp, nxt, levels,
+                  pat_dtype=torch.int32)
+
+
 def _window_levels(padded: torch.Tensor, k: int) -> int:
     """The most K-token window levels one compare can take in a corpus
     zero-padded by K tokens (``CorpusStore.max_window_depth`` + 1)."""
@@ -79,7 +89,7 @@ def _window_levels(padded: torch.Tensor, k: int) -> int:
 def pattern_search_ref(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo, hi,
                        upper: bool, rounds: int):
     """One Manber–Myers bound for every pattern row, as the engine's round
-    loop finds it over ``masked_cmp``: the corpus zero-padded by K tokens
+    loop finds it over ``compare_level``: the corpus zero-padded by K tokens
     (``InMemoryBackend.padded``; its dimension says text or reads), the SA and
     its LLCP/RLCP (both None: no LCP) int64, pattern rows (q, lmax) and
     lengths (q,) int64, the open ranges ``lo``/``hi`` (q,) int64 from the
@@ -97,8 +107,9 @@ def pattern_search_ref(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo, hi
 
     def compare(gidx, t0, rows, lv):
         return compare_levels(
-            lambda g, d: padded_windows(padded, stride_bits, k, g, d), masked_cmp,
-            gidx, pat, plen, t0, rows, k, max_levels, levels=lv)
+            lambda g, d: padded_windows(padded, stride_bits, k, *(
+                torch.from_numpy(a).to(padded.device) for a in (g, d))),
+            compare_level, gidx, pat, plen, t0, rows, k, max_levels, levels=lv)
 
     bound, _ = bound_rounds(sa, llcp, rlcp, lo.clone(), hi.clone(), upper, compare,
                             record=(levels, active))

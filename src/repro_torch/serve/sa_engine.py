@@ -13,10 +13,10 @@ Under ``use_pallas`` over an in-memory backend a bound is one launch of the
 hand-written ``pattern_search`` kernel, which runs every round of every row
 on the card (its plain version, the round loop, for CPU tensors); the
 counters are rebuilt from its record of window levels.  Otherwise each
-round issues one compare for all live rows: the ``pattern_cmp`` kernel
-under ``use_pallas`` (a chunked backend, whose cache counters follow its
-calls, and the routing to shards),
-:func:`repro_torch.core.search.masked_cmp` without.  The public types stay
+round compares all live rows a window level at a time: one fetch and one
+``pattern_cmp_level`` launch a level under ``use_pallas`` (a chunked
+backend, whose cache counters follow its calls, and the routing to shards),
+:func:`repro_torch.core.search.compare_level` without.  The public types stay
 the JAX package's: numpy counts and positions, tuple lists.
 
 :class:`SuffixArrayIndex` builds with the post-hoc LCP array on the card by
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import SAConfig, SuperblockConfig
-from repro_torch.core.search import bound_rounds, compare_levels, masked_cmp
+from repro_torch.core.search import bound_rounds, compare_level, compare_levels
 from repro_torch.core.store import (
     ChunkedFileBackend,
     CorpusStore,
@@ -223,18 +223,17 @@ class ShardedSAEngine:
         self._llcp, self._rlcp = llcp, rlcp
 
     # -- batched compares ----------------------------------------------------
-    def _cmp_rows(self, win: torch.Tensor, pw: torch.Tensor, start: torch.Tensor,
-                  stop: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One compare over all live rows: the kernel or its tensor mirror."""
+    def _compare_level(self, *args) -> None:
+        """One window level over the rows in play (``compare_level``'s
+        contract): one ``pattern_cmp_level`` launch (its plain version for
+        CPU tensors), or its tensor mirror."""
         self.stats["compare_rounds"] += 1
         if self.use_pallas:
             from repro_torch.kernels import ops as kops
 
-            out = kops.pattern_cmp(
-                win.to(torch.int32).contiguous(), pw.to(torch.int32),
-                start.to(torch.int32), stop.to(torch.int32), block=self.block)
-            return out[:, 0], out[:, 1].to(torch.int64)
-        return masked_cmp(win, pw, start, stop)
+            kops.pattern_cmp_level(*args, block=self.block)
+        else:
+            compare_level(*args)
 
     def _compare_batch(
         self,
@@ -255,7 +254,7 @@ class ShardedSAEngine:
         """
         if pi is None:
             pi = torch.arange(gidx.shape[0], device=self.device)
-        return compare_levels(self.store.fetch_windows, self._cmp_rows, gidx,
+        return compare_levels(self.store.fetch_windows, self._compare_level, gidx,
                               pat_rows, pat_len, t0, pi, self.store.k,
                               self.store.max_window_depth + 1)
 

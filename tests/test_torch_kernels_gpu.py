@@ -21,11 +21,12 @@ from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels.cases import (
     CMP_EDGE_K, CMP_SHAPES, GATHER_CASES, GATHER_IDS, GATHER_LARGE,
     GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
-    HIST_SHAPES, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
+    HIST_SHAPES, LEVEL_CASES, LEVEL_K, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
     PACK_BLOCK, PACK_CFGS, PACK_EDGE, PACK_IDS, PACK_LENGTHS, SEARCH_CFG,
     SEARCH_CORPORA, SORT_EDGE, SORT_FAULT, SORT_LARGE, SORT_SHAPES,
     cmp_edge_inputs, cmp_inputs,
-    fault_arrays, gather_case, hist_edge_inputs, hist_inputs, merge_edge_inputs,
+    fault_arrays, gather_case, hist_edge_inputs, hist_inputs, level_args,
+    level_case, level_windows, merge_edge_inputs,
     merge_inputs, merge_run_edge_inputs, merge_runs_inputs, pack_edge_tokens,
     pack_tokens, search_args, search_corpus, search_patterns, sort_edge_inputs,
     sort_inputs, sorted_rows)
@@ -114,6 +115,53 @@ def test_pattern_cmp_kernel_edge_rows_on_card(cuda, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", LEVEL_K)
+@pytest.mark.parametrize("name", LEVEL_CASES)
+def test_pattern_cmp_level_kernel_on_card(cuda, name, k):
+    """One window level on the card against its plain version on the same
+    card tensors: every row of a case in play at its level (the edge rows
+    of ``level_case`` included, windows shuffled), rows out of play set on a
+    first level and untouched on a later one, with and without ``levels``,
+    and a level with no row in play, one launch a call; then
+    ``compare_levels`` to the end, kernel against plain."""
+    from repro_torch.core.search import compare_levels
+
+    case = level_case(name, k)
+    args = [torch.from_numpy(a).to(cuda) for a in level_args(case, k)]
+    idle = list(args)
+    idle[0], idle[1] = args[0][:0], torch.full_like(args[1], -1)
+    for first in (True, False):
+        for call in (args, idle):
+            for with_levels in (True, False):
+                got = [a.clone() for a in call]
+                want = [a.clone() for a in call]
+                if not first:
+                    got[3], want[3] = got[2], want[2]
+                if not with_levels:
+                    got[9] = want[9] = None
+                before = (pc_mod.pattern_cmp.launches, pc_mod.pattern_cmp_level.launches)
+                ops.pattern_cmp_level(*got)
+                torch.cuda.synchronize()
+                assert (pc_mod.pattern_cmp.launches, pc_mod.pattern_cmp_level.launches) == (
+                    before[0], before[1] + 1)
+                ref.pattern_cmp_level_ref(*want)
+                for g, w in zip(got, want, strict=True):
+                    assert g is w is None or torch.equal(g, w)
+
+    def fetch(gidx, lv):
+        return torch.from_numpy(level_windows(case["suffix"], gidx, lv, k)).to(cuda)
+
+    q = case["t0"].shape[0]
+    loop = (torch.arange(q, device=cuda),
+            *(torch.from_numpy(case[c]).to(cuda) for c in ("pat_rows", "plen", "t0", "pi")),
+            k, 5)
+    lv_k, lv_p = (torch.zeros(q, dtype=torch.int32, device=cuda) for _ in range(2))
+    got = compare_levels(fetch, ops.pattern_cmp_level, *loop, levels=lv_k)
+    want = compare_levels(fetch, ref.pattern_cmp_level_ref, *loop, levels=lv_p)
+    assert all(torch.equal(g, w) for g, w in zip((*got, lv_k), (*want, lv_p)))
+
+
+@pytest.mark.gpu
 def test_index_kernel_and_plain_engines_agree_on_card(cuda):
     """A small index on the card: the engine on the kernel and the engine on
     the plain compare give the same ranges and counters."""
@@ -149,7 +197,8 @@ def test_index_kernel_and_plain_engines_agree_on_card(cuda):
 def test_chunked_index_kernel_and_plain_engines_agree_on_card(cuda, tmp_path):
     """An index reopened on the chunked store keeps the round loop: its
     cache counters follow one backend call a capacity chunk, so it compares
-    through ``pattern_cmp``, and equals the plain engine."""
+    a window level a ``pattern_cmp_level`` launch, and equals the plain
+    engine."""
     import numpy as np
 
     from repro_torch import ShardedSAEngine, SuffixArrayIndex
@@ -169,7 +218,10 @@ def test_chunked_index_kernel_and_plain_engines_agree_on_card(cuda, tmp_path):
     before = launch_counts()
     got = idx.engine.ranges(pats)
     launched = launch_counts()
-    assert launched["pattern_cmp"] > before["pattern_cmp"]
+    assert launched["pattern_cmp_level"] > before["pattern_cmp_level"]
+    assert (idx.engine.stats["compare_rounds"]
+            == launched["pattern_cmp_level"] - before["pattern_cmp_level"])
+    assert launched["pattern_cmp"] == before["pattern_cmp"]
     assert launched["pattern_search"] == before["pattern_search"]
     plain = ShardedSAEngine(plain_idx.store, plain_idx.sa, lcp=plain_idx.lcp,
                             use_pallas=False)
