@@ -19,6 +19,12 @@ when no process group is initialized):
 :class:`DeviceRefiner` is the same reduce loop over an arbitrary set of
 suffix indexes: the out-of-core merge's ``merge_backend="device"``.
 
+Each phase runs in a span (:mod:`repro_torch.core.spans`): ``sa.build``
+holds ``sa.input``, ``sa.map``, ``sa.shuffle``, ``sa.sort``, ``sa.refine``
+(one ``sa.refine.round`` a round) and ``sa.output``, back to back; the
+fetches (``sa.store.fetch``) and group-id scans (``sa.run_groups``) have
+spans of their own.  No span synchronises or changes a result.
+
 Translations from the JAX package: ``shard_map`` over the ``"sa"`` axis is
 one process a rank (:class:`repro_torch.core.distributed.Ranks`);
 ``lax.while_loop`` is a host loop whose condition reads one device scalar
@@ -49,6 +55,7 @@ from repro_torch.core.distributed import (
     sample_splitters,
     world,
 )
+from repro_torch.core.spans import span
 from repro_torch.core.store import StoreSpec, mget_window, serve_windows, token_bytes
 from repro_torch.core.types import (
     KEY_SENTINEL,
@@ -85,12 +92,13 @@ def _suffix_exhausted(ih, il, depth, *, text_mode, text_len, uniform_len,
 
 def _run_groups(keys, validr):
     """Group ids of runs of equal ``keys`` rows (padding rows stand alone)."""
-    eq = torch.zeros(validr.shape, dtype=torch.bool, device=validr.device)
-    same = validr[1:].clone()
-    for key in keys:
-        same &= key[1:] == key[:-1]
-    eq[1:] = same
-    return run_starts(eq)
+    with span("sa.run_groups", validr.device):
+        eq = torch.zeros(validr.shape, dtype=torch.bool, device=validr.device)
+        same = validr[1:].clone()
+        for key in keys:
+            same &= key[1:] == key[:-1]
+        eq[1:] = same
+        return run_starts(eq)
 
 
 def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,
@@ -114,60 +122,62 @@ def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,
                  fetch_response_bytes=zero, retries=zero, max_depth=zero + 1)
 
     ranks = spec.ranks
-    while stats["iters"] < hard_cap:
-        active = _tied(g) & ~exhausted & (ih != KEY_SENTINEL)
-        if not bool(psum(active.sum(), ranks)):
-            break
-        validr = ih != KEY_SENTINEL
-        if analytic:
-            exhausted = _suffix_exhausted(
-                ih, il, depth, text_mode=text_mode, text_len=text_len,
-                uniform_len=uniform_len, stride_bits=stride_bits, k=k,
-            ) | ~validr
-            active = _tied(g) & ~exhausted & validr
-        if text_mode:
-            row = il + depth * k  # absolute window start owns the request
-            off = torch.zeros_like(il)
-        else:
-            row, off0 = unpack_index(ih, il, stride_bits)
-            off = off0 + depth * k
-        if ranks.size == 1:
-            words, exh_new, ok, fs = serve_windows(store_local, row, off, active,
-                                                   spec, cfg)
-        else:
-            words, exh_new, ok, fs = mget_window(store_local, row, off, active,
-                                                 spec, cfg)
-            if not cfg.server_pack:
-                words = encoding.pack_words(words, cfg)
-        del row, off
-        # group-synchronous advance: a group consumes its window only if every
-        # active member was served; otherwise the whole group retries.
-        member_ok = torch.where(active, ok, True).to(torch.int32)
-        gl = g.long()
-        seg_ok = torch.ones((n,), dtype=torch.int32, device=dev).scatter_reduce(
-            0, gl, member_ok, "amin")
-        step = (seg_ok[gl] > 0) & validr & active
-        del gl, seg_ok, member_ok
-        nk_hi = torch.where(step, words[:, 0], 0)
-        nk_lo = torch.where(step, words[:, 1], 0)
-        del words
-        if not analytic:
-            exhausted = torch.where(step, exh_new, exhausted)
-        depth = torch.where(step, depth + 1, depth)
-        del step, exh_new, ok, active
-        g, nk_hi, nk_lo, ih, il, exh_i, depth = lex_sort(
-            [g, nk_hi, nk_lo, ih, il], [exhausted.to(torch.int32), depth])
-        exhausted = exh_i > 0
-        g = _run_groups([g, nk_hi, nk_lo], ih != KEY_SENTINEL)
-        del nk_hi, nk_lo, exh_i
-        stats = dict(
-            iters=stats["iters"] + 1,
-            fetch_requests=stats["fetch_requests"] + fs.requests,
-            fetch_request_bytes=stats["fetch_request_bytes"] + fs.request_bytes,
-            fetch_response_bytes=stats["fetch_response_bytes"] + fs.response_bytes,
-            retries=stats["retries"] + fs.dropped,
-            max_depth=torch.maximum(stats["max_depth"], depth.max().long()),
-        )
+    with span("sa.refine", dev):
+        while stats["iters"] < hard_cap:
+            active = _tied(g) & ~exhausted & (ih != KEY_SENTINEL)
+            if not bool(psum(active.sum(), ranks)):
+                break
+            with span("sa.refine.round", dev):
+                validr = ih != KEY_SENTINEL
+                if analytic:
+                    exhausted = _suffix_exhausted(
+                        ih, il, depth, text_mode=text_mode, text_len=text_len,
+                        uniform_len=uniform_len, stride_bits=stride_bits, k=k,
+                    ) | ~validr
+                    active = _tied(g) & ~exhausted & validr
+                if text_mode:
+                    row = il + depth * k  # absolute window start owns the request
+                    off = torch.zeros_like(il)
+                else:
+                    row, off0 = unpack_index(ih, il, stride_bits)
+                    off = off0 + depth * k
+                if ranks.size == 1:
+                    words, exh_new, ok, fs = serve_windows(store_local, row, off, active,
+                                                           spec, cfg)
+                else:
+                    words, exh_new, ok, fs = mget_window(store_local, row, off, active,
+                                                         spec, cfg)
+                    if not cfg.server_pack:
+                        words = encoding.pack_words(words, cfg)
+                del row, off
+                # group-synchronous advance: a group consumes its window only if every
+                # active member was served; otherwise the whole group retries.
+                member_ok = torch.where(active, ok, True).to(torch.int32)
+                gl = g.long()
+                seg_ok = torch.ones((n,), dtype=torch.int32, device=dev).scatter_reduce(
+                    0, gl, member_ok, "amin")
+                step = (seg_ok[gl] > 0) & validr & active
+                del gl, seg_ok, member_ok
+                nk_hi = torch.where(step, words[:, 0], 0)
+                nk_lo = torch.where(step, words[:, 1], 0)
+                del words
+                if not analytic:
+                    exhausted = torch.where(step, exh_new, exhausted)
+                depth = torch.where(step, depth + 1, depth)
+                del step, exh_new, ok, active
+                g, nk_hi, nk_lo, ih, il, exh_i, depth = lex_sort(
+                    [g, nk_hi, nk_lo, ih, il], [exhausted.to(torch.int32), depth])
+                exhausted = exh_i > 0
+                g = _run_groups([g, nk_hi, nk_lo], ih != KEY_SENTINEL)
+                del nk_hi, nk_lo, exh_i
+                stats = dict(
+                    iters=stats["iters"] + 1,
+                    fetch_requests=stats["fetch_requests"] + fs.requests,
+                    fetch_request_bytes=stats["fetch_request_bytes"] + fs.request_bytes,
+                    fetch_response_bytes=stats["fetch_response_bytes"] + fs.response_bytes,
+                    retries=stats["retries"] + fs.dropped,
+                    max_depth=torch.maximum(stats["max_depth"], depth.max().long()),
+                )
     return g, ih, il, exhausted, depth, stats
 
 
@@ -223,53 +233,56 @@ def _device_fn(reads_l, lengths_l, halo_l, *, cfg: SAConfig, info: dict,
     k = cfg.prefix_len
     text_mode, text_len = info["text_mode"], info["text_len"]
     stride_bits, uniform_len = info["stride_bits"], info["uniform_len"]
-    rec, valid0, bucket = _map_phase(
-        reads_l, lengths_l, halo_l, cfg=cfg,
-        rows_per_shard=info["rows_per_shard"], stride_bits=stride_bits,
-        text_mode=text_mode, text_len=text_len, ranks=ranks,
-    )
-    n_valid_local = valid0.sum()
-    shuffle_cap = (exact_shuffle_cap(bucket, d, ranks) if cfg.adaptive
-                   else info["shuffle_cap"])
+    with span("sa.map", reads_l.device):
+        rec, valid0, bucket = _map_phase(
+            reads_l, lengths_l, halo_l, cfg=cfg,
+            rows_per_shard=info["rows_per_shard"], stride_bits=stride_bits,
+            text_mode=text_mode, text_len=text_len, ranks=ranks,
+        )
+        n_valid_local = valid0.sum()
+        shuffle_cap = (exact_shuffle_cap(bucket, d, ranks) if cfg.adaptive
+                       else info["shuffle_cap"])
 
     # ---- Shuffle: the 16-byte-record all_to_all ------------------------
-    buf, slot, _ = bucket_scatter(rec, bucket, d + 1, shuffle_cap, KEY_SENTINEL)
-    drop_shuffle = torch.sum(valid0 & (slot >= d * shuffle_cap))
-    del rec, bucket, slot, valid0
-    recv = exchange(buf[:d], ranks).reshape(d * shuffle_cap, 4)
-    cols = [recv[:, i].contiguous() for i in range(4)]
-    del buf, recv
+    with span("sa.shuffle", reads_l.device):
+        buf, slot, _ = bucket_scatter(rec, bucket, d + 1, shuffle_cap, KEY_SENTINEL)
+        drop_shuffle = torch.sum(valid0 & (slot >= d * shuffle_cap))
+        del rec, bucket, slot, valid0
+        recv = exchange(buf[:d], ranks).reshape(d * shuffle_cap, 4)
+        cols = [recv[:, i].contiguous() for i in range(4)]
+        del buf, recv
 
     # ---- Reduce: initial sort ------------------------------------------
-    kh, kl, ih, il = lex_sort(cols)
-    del cols
-    validr = ih != KEY_SENTINEL
-    g = _run_groups([kh, kl], validr)
-    del kh, kl
+    with span("sa.sort", reads_l.device):
+        kh, kl, ih, il = lex_sort(cols)
+        del cols
+        validr = ih != KEY_SENTINEL
+        g = _run_groups([kh, kl], validr)
+        del kh, kl
 
-    # exhausted = the first depth*K tokens already covered the whole suffix:
-    # analytic in text mode / uniform reads, else resolved by fetch flags.
-    analytic = text_mode or (uniform_len is not None)
-    if analytic:
-        exhausted = _suffix_exhausted(
-            ih, il, 1, text_mode=text_mode, text_len=text_len,
-            uniform_len=uniform_len, stride_bits=stride_bits, k=k,
+        # exhausted = the first depth*K tokens already covered the whole suffix:
+        # analytic in text mode / uniform reads, else resolved by fetch flags.
+        analytic = text_mode or (uniform_len is not None)
+        if analytic:
+            exhausted = _suffix_exhausted(
+                ih, il, 1, text_mode=text_mode, text_len=text_len,
+                uniform_len=uniform_len, stride_bits=stride_bits, k=k,
+            )
+        else:
+            exhausted = torch.zeros_like(validr)
+        exhausted = exhausted | ~validr
+
+        spec = StoreSpec(
+            num_shards=d,
+            rows_per_shard=info["rows_per_shard"],
+            row_len=info["row_len"],
+            request_capacity=fetch_capacity(shuffle_cap, cfg, d),
+            ranks=ranks,
         )
-    else:
-        exhausted = torch.zeros_like(validr)
-    exhausted = exhausted | ~validr
-
-    spec = StoreSpec(
-        num_shards=d,
-        rows_per_shard=info["rows_per_shard"],
-        row_len=info["row_len"],
-        request_capacity=fetch_capacity(shuffle_cap, cfg, d),
-        ranks=ranks,
-    )
-    if text_mode:  # store shard = tokens + right halo
-        store_local = torch.cat([reads_l.reshape(-1), halo_l.reshape(-1)])[:, None]
-    else:
-        store_local = reads_l
+        if text_mode:  # store shard = tokens + right halo
+            store_local = torch.cat([reads_l.reshape(-1), halo_l.reshape(-1)])[:, None]
+        else:
+            store_local = reads_l
 
     g, ih, il, exhausted, _, stats = _refine_tie_groups(
         g, ih, il, exhausted, store_local=store_local, spec=spec, cfg=cfg,
@@ -383,11 +396,15 @@ def build_suffix_array(
     """
     ranks = world(group)
     dev = resolve_device(device)
-    info = plan(np.shape(corpus), cfg, ranks.size, lengths)
-    data, lens, halo = local_shard(corpus, lengths, cfg, info, ranks, dev)
-    ih, il, statvec = _device_fn(data, lens, halo, cfg=cfg, info=info, ranks=ranks)
-    return _finalize(gathered(ih, ranks).reshape(-1), gathered(il, ranks).reshape(-1),
-                     gathered(statvec, ranks), corpus, cfg)
+    with span("sa.build", dev):
+        info = plan(np.shape(corpus), cfg, ranks.size, lengths)
+        with span("sa.input", dev):
+            data, lens, halo = local_shard(corpus, lengths, cfg, info, ranks, dev)
+        ih, il, statvec = _device_fn(data, lens, halo, cfg=cfg, info=info, ranks=ranks)
+        with span("sa.output", dev):
+            return _finalize(gathered(ih, ranks).reshape(-1),
+                             gathered(il, ranks).reshape(-1),
+                             gathered(statvec, ranks), corpus, cfg)
 
 
 def local_shard(corpus, lengths, cfg: SAConfig, info: dict, ranks: Ranks, dev):

@@ -52,6 +52,7 @@ from repro_torch.core.integrity import (
     CorruptionError,
     TransientStoreError,
 )
+from repro_torch.core.spans import span
 from repro_torch.core.types import WORD_BITS
 from repro_torch.device import resolve_device
 
@@ -166,42 +167,43 @@ def mget_window(
     k = window or cfg.prefix_len
     d, cap = spec.num_shards, spec.request_capacity
 
-    owner = torch.where(active, torch.div(row_id, spec.rows_per_shard,
-                                          rounding_mode="floor"), d)
-    owner = owner.clamp(0, d).to(torch.int32)  # inactive -> dump bucket d
-    reqs = torch.stack([torch.where(active, row_id, -1),
-                        torch.where(active, offset, 0)], dim=1)
-    buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
-    dropped = torch.sum(active & (slot >= d * cap))
+    with span("sa.store.fetch", row_id.device):
+        owner = torch.where(active, torch.div(row_id, spec.rows_per_shard,
+                                              rounding_mode="floor"), d)
+        owner = owner.clamp(0, d).to(torch.int32)  # inactive -> dump bucket d
+        reqs = torch.stack([torch.where(active, row_id, -1),
+                            torch.where(active, offset, 0)], dim=1)
+        buf, slot, _ = bucket_scatter(reqs, owner, d + 1, cap, fill=-1)
+        dropped = torch.sum(active & (slot >= d * cap))
 
-    recv = exchange(buf[:d], spec.ranks).reshape(d * cap, 2)
-    del buf
-    base = spec.ranks.rank * spec.rows_per_shard
-    resp_width = cfg.key_words if cfg.server_pack else k
-    payload = torch.empty((d * cap, resp_width + 1), dtype=torch.int32,
-                          device=recv.device)
-    for lo in range(0, d * cap, FETCH_CHUNK):
-        hi = lo + FETCH_CHUNK
-        req_row = recv[lo:hi, 0]
-        local_row = torch.where(req_row >= 0, req_row - base, -1).contiguous()
-        windows = _gather(local_rows, local_row, recv[lo:hi, 1].contiguous(),
-                          spec, cfg, k)
-        payload[lo:hi, resp_width] = torch.any(windows == 0, dim=-1)
-        payload[lo:hi, :resp_width] = (
-            encoding.pack_words(windows, cfg) if cfg.server_pack else windows)
-        del windows, local_row
-    del recv
+        recv = exchange(buf[:d], spec.ranks).reshape(d * cap, 2)
+        del buf
+        base = spec.ranks.rank * spec.rows_per_shard
+        resp_width = cfg.key_words if cfg.server_pack else k
+        payload = torch.empty((d * cap, resp_width + 1), dtype=torch.int32,
+                              device=recv.device)
+        for lo in range(0, d * cap, FETCH_CHUNK):
+            hi = lo + FETCH_CHUNK
+            req_row = recv[lo:hi, 0]
+            local_row = torch.where(req_row >= 0, req_row - base, -1).contiguous()
+            windows = _gather(local_rows, local_row, recv[lo:hi, 1].contiguous(),
+                              spec, cfg, k)
+            payload[lo:hi, resp_width] = torch.any(windows == 0, dim=-1)
+            payload[lo:hi, :resp_width] = (
+                encoding.pack_words(windows, cfg) if cfg.server_pack else windows)
+            del windows, local_row
+        del recv
 
-    flatresp = exchange(payload.reshape(d, cap, resp_width + 1), spec.ranks)
-    flatresp = flatresp.reshape(d * cap, resp_width + 1)
-    guard = torch.zeros((1, resp_width + 1), dtype=flatresp.dtype,
-                        device=flatresp.device)
-    flatresp = torch.cat([flatresp, guard], dim=0)
-    back = flatresp[slot.long().clamp(0, d * cap)]
-    ok = active & (slot < d * cap)
-    out = torch.where(ok[:, None], back[:, :resp_width], 0)
-    exhausted = torch.where(ok, back[:, resp_width] > 0, True)
-    return out, exhausted, ok, _fetch_stats(torch.sum(ok), dropped, spec, cfg, k)
+        flatresp = exchange(payload.reshape(d, cap, resp_width + 1), spec.ranks)
+        flatresp = flatresp.reshape(d * cap, resp_width + 1)
+        guard = torch.zeros((1, resp_width + 1), dtype=flatresp.dtype,
+                            device=flatresp.device)
+        flatresp = torch.cat([flatresp, guard], dim=0)
+        back = flatresp[slot.long().clamp(0, d * cap)]
+        ok = active & (slot < d * cap)
+        out = torch.where(ok[:, None], back[:, :resp_width], 0)
+        exhausted = torch.where(ok, back[:, resp_width] > 0, True)
+        return out, exhausted, ok, _fetch_stats(torch.sum(ok), dropped, spec, cfg, k)
 
 
 def serve_windows(
@@ -231,22 +233,23 @@ def serve_windows(
     k = cfg.prefix_len
     if spec.num_shards != 1:
         raise ValueError("serve_windows serves one shard; use mget_window")
-    m = row_id.shape[0]
-    dev = row_id.device
-    owned = active & (row_id < spec.rows_per_shard)
-    ok = owned & (torch.cumsum(owned, 0) <= spec.request_capacity)
-    words = torch.zeros((m, cfg.key_words), dtype=torch.int32, device=dev)
-    exhausted = torch.ones((m,), dtype=torch.bool, device=dev)
-    served = torch.nonzero(ok).squeeze(1)
-    for lo in range(0, served.shape[0], chunk):
-        idx = served[lo : lo + chunk]
-        win = _gather(local_rows, row_id[idx], offset[idx], spec, cfg, k)
-        exhausted[idx] = torch.any(win == 0, dim=-1)
-        words[idx] = encoding.pack_words(win, cfg)
-        del win
-    n_ok = torch.tensor(served.shape[0], device=dev)
-    dropped = torch.sum(active) - n_ok
-    return words, exhausted, ok, _fetch_stats(n_ok, dropped, spec, cfg, k)
+    with span("sa.store.fetch", row_id.device):
+        m = row_id.shape[0]
+        dev = row_id.device
+        owned = active & (row_id < spec.rows_per_shard)
+        ok = owned & (torch.cumsum(owned, 0) <= spec.request_capacity)
+        words = torch.zeros((m, cfg.key_words), dtype=torch.int32, device=dev)
+        exhausted = torch.ones((m,), dtype=torch.bool, device=dev)
+        served = torch.nonzero(ok).squeeze(1)
+        for lo in range(0, served.shape[0], chunk):
+            idx = served[lo : lo + chunk]
+            win = _gather(local_rows, row_id[idx], offset[idx], spec, cfg, k)
+            exhausted[idx] = torch.any(win == 0, dim=-1)
+            words[idx] = encoding.pack_words(win, cfg)
+            del win
+        n_ok = torch.tensor(served.shape[0], device=dev)
+        dropped = torch.sum(active) - n_ok
+        return words, exhausted, ok, _fetch_stats(n_ok, dropped, spec, cfg, k)
 
 
 def _text_window(flat: torch.Tensor, local_pos: torch.Tensor, off: torch.Tensor,

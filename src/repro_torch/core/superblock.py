@@ -41,8 +41,9 @@ memmaps, and ``write_manifest`` finalizes it as an index directory
 (``repro_torch.core.index_io``).
 
 The output equals the JAX package's: the suffix array, the LCP array, every
-``Footprint`` field and every ``stats`` key but the wall times ``t_*_s``,
-and the files of a ``spill_dir`` byte for byte.  ``store_retries > 0``
+``Footprint`` field and every ``stats`` key but the wall times ``t_*_s``
+(the host seconds of the spans ``sb.stage``, ``sb.block`` and ``sb.merge``,
+:mod:`repro_torch.core.spans`, summed over the build), and the files of a ``spill_dir`` byte for byte.  ``store_retries > 0``
 wraps the backend in a :class:`RetryingBackend`, and the sanitizer
 (``sanitize`` or ``REPRO_SANITIZE``) wraps it, and the merge's sink, in its
 checking proxies (``repro_torch.core.sanitize``).
@@ -63,7 +64,6 @@ import math
 import os
 import shutil
 import tempfile
-import time
 import uuid
 import warnings
 from dataclasses import dataclass
@@ -94,6 +94,7 @@ from repro_torch.core.sanitize import (
     sanitize_enabled,
     unwrap_backend,
 )
+from repro_torch.core.spans import span
 from repro_torch.core.store import (
     DEFAULT_CACHE_BUDGET,
     ChunkedFileBackend,
@@ -1564,168 +1565,168 @@ def _build_superblock_phases(
             fp.peak_records = max(fp.peak_records, rec["stats"]["num_suffixes"])
             journal_hits += 1
             continue
-        t0 = time.perf_counter()
-        entry = prefetched.pop(i, None)
-        if entry is not None:
-            task, reg = entry
-            pipeline_point("stage:collect")
-            block = task.result()
-            store.note_staged(lo, hi, block.nbytes)
-            if reg:
-                store.add_frontier(-reg)
-                pf_registered -= reg
-        else:
-            block = store.stage_items(lo, hi)
-        _submit_stages(i + 1)
-        t_stage += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pipeline_point("build:block")
-        if plan.text_mode:
-            res = build_suffix_array(block, cfg=cfg, device=dev, group=ranks.group)
-            sa_b = res.suffix_array + lo
-        else:
-            lens_b = None if lengths is None else np.asarray(lengths)[lo:hi]
-            res = build_suffix_array(block, lengths=lens_b, cfg=cfg, device=dev,
-                                     group=ranks.group)
-            sa_b = res.suffix_array + (np.int64(lo) << plan.stride_bits)
-        run = keep_run(sa_b)
-        local_sas.append(run)
-        bf = res.footprint
-        fp.shuffle += bf.shuffle
-        fp.fetch_request += bf.fetch_request
-        fp.fetch_response += bf.fetch_response
-        fp.rounds = max(fp.rounds, bf.rounds)
-        fp.dropped += bf.dropped
-        fp.peak_records = max(fp.peak_records, res.stats["num_suffixes"])
-        block_stats.append(res.stats)
-        if jr is not None and isinstance(run, np.memmap):
-            path, task = scratch.last_spill
-            pending_journal.append(({
-                "t": "block", "i": i,
-                "run": os.path.basename(path),
-                "run_crc": crc32_array(sa_b),
-                "rows": int(sa_b.shape[0]),
-                "stats": res.stats,
-                "fpc": {
-                    "shuffle": int(bf.shuffle),
-                    "fetch_request": int(bf.fetch_request),
-                    "fetch_response": int(bf.fetch_response),
-                    "rounds": int(bf.rounds),
-                    "dropped": int(bf.dropped),
-                },
-            }, task))
-            _flush_journal()
-        t_build += time.perf_counter() - t0
+        with span("sb.stage", dev) as stage:
+            entry = prefetched.pop(i, None)
+            if entry is not None:
+                task, reg = entry
+                pipeline_point("stage:collect")
+                block = task.result()
+                store.note_staged(lo, hi, block.nbytes)
+                if reg:
+                    store.add_frontier(-reg)
+                    pf_registered -= reg
+            else:
+                block = store.stage_items(lo, hi)
+            _submit_stages(i + 1)
+        t_stage += stage.host_s
+        with span("sb.block", dev) as block_span:
+            pipeline_point("build:block")
+            if plan.text_mode:
+                res = build_suffix_array(block, cfg=cfg, device=dev, group=ranks.group)
+                sa_b = res.suffix_array + lo
+            else:
+                lens_b = None if lengths is None else np.asarray(lengths)[lo:hi]
+                res = build_suffix_array(block, lengths=lens_b, cfg=cfg, device=dev,
+                                         group=ranks.group)
+                sa_b = res.suffix_array + (np.int64(lo) << plan.stride_bits)
+            run = keep_run(sa_b)
+            local_sas.append(run)
+            bf = res.footprint
+            fp.shuffle += bf.shuffle
+            fp.fetch_request += bf.fetch_request
+            fp.fetch_response += bf.fetch_response
+            fp.rounds = max(fp.rounds, bf.rounds)
+            fp.dropped += bf.dropped
+            fp.peak_records = max(fp.peak_records, res.stats["num_suffixes"])
+            block_stats.append(res.stats)
+            if jr is not None and isinstance(run, np.memmap):
+                path, task = scratch.last_spill
+                pending_journal.append(({
+                    "t": "block", "i": i,
+                    "run": os.path.basename(path),
+                    "run_crc": crc32_array(sa_b),
+                    "rows": int(sa_b.shape[0]),
+                    "stats": res.stats,
+                    "fpc": {
+                        "shuffle": int(bf.shuffle),
+                        "fetch_request": int(bf.fetch_request),
+                        "fetch_response": int(bf.fetch_response),
+                        "rounds": int(bf.rounds),
+                        "dropped": int(bf.dropped),
+                    },
+                }, task))
+                _flush_journal()
+        t_build += block_span.host_s
     if scratch is not None:
         scratch.drain_spills()  # spilled runs must be on disk before reads
     if jr is not None:
         _flush_journal(force=True)  # every run is durable now
 
     # ---- phase 3: boundary-exact merge via the store --------------------
-    t_merge0 = time.perf_counter()
-    samples = max(1, min(sb.samples_per_block,
-                         plan.capacity_records // plan.num_superblocks))
-    cap = plan.capacity_records
-    pre_requests = store.requests
-    total_suffixes = int(sum(r.shape[0] for r in local_sas))
-    out_path = lcp_path = pair_lcp = None
-    if out_dir is not None:
-        out_path = os.path.join(out_dir, "suffix_array.npy")
-    if sb.emit_lcp:
-        # emit order is final order: each emitted suffix's LCP is one
-        # adjacent compare against the previous one, served by the store
-        def pair_lcp(a, b):
-            return pairwise_lcp(store, a, b)
-
+    with span("sb.merge", dev) as merge:
+        samples = max(1, min(sb.samples_per_block,
+                             plan.capacity_records // plan.num_superblocks))
+        cap = plan.capacity_records
+        pre_requests = store.requests
+        total_suffixes = int(sum(r.shape[0] for r in local_sas))
+        out_path = lcp_path = pair_lcp = None
         if out_dir is not None:
-            lcp_path = os.path.join(out_dir, "lcp.npy")
-    sink = _OutputSink(total_suffixes, dev, pair_lcp=pair_lcp, executor=pipe,
-                       memmap_path=out_path, lcp_path=lcp_path)
-    sinks.append(sink)
-    if jr is not None:
-        sink = _JournalingSink(sink, jr)  # emitted-rows watermark records
-    if sanitize_enabled(sb):
-        # order-checks the emitted pieces through a private audit store: the
-        # build store's traffic counters stay the unsanitized build's
-        sink = SanitizingSink(sink, backend, cfg,
-                              request_capacity=sb.request_capacity)
-    peak_candidates = 0
+            out_path = os.path.join(out_dir, "suffix_array.npy")
+        if sb.emit_lcp:
+            # emit order is final order: each emitted suffix's LCP is one
+            # adjacent compare against the previous one, served by the store
+            def pair_lcp(a, b):
+                return pairwise_lcp(store, a, b)
 
-    cur = WindowCursor(store)
-    refiner: Optional[DeviceRefiner] = None
-    if sb.merge_backend == "device":
-        refiner = DeviceRefiner(
-            original_corpus if isinstance(original_corpus, np.ndarray)
-            else store.stage_items(0, backend.n),
-            cfg, lengths=lengths, device=dev, group=ranks.group,
-        )
-        refine = refiner.refine
-    else:
-        # kway: the merge cursor is offered every re-rank fetch, so the
-        # k-way phase serves those windows from its cache.  Not streaming:
-        # the offers would keep a window a re-ranked suffix cached, beyond
-        # the frontier's bound
-        warm = cur if (sb.merge_algorithm == "kway" and not streaming) else None
+            if out_dir is not None:
+                lcp_path = os.path.join(out_dir, "lcp.npy")
+        sink = _OutputSink(total_suffixes, dev, pair_lcp=pair_lcp, executor=pipe,
+                           memmap_path=out_path, lcp_path=lcp_path)
+        sinks.append(sink)
+        if jr is not None:
+            sink = _JournalingSink(sink, jr)  # emitted-rows watermark records
+        if sanitize_enabled(sb):
+            # order-checks the emitted pieces through a private audit store: the
+            # build store's traffic counters stay the unsanitized build's
+            sink = SanitizingSink(sink, backend, cfg,
+                                  request_capacity=sb.request_capacity)
+        peak_candidates = 0
 
-        def refine(g: torch.Tensor) -> torch.Tensor:
-            return _refine_sort(store, g, cursor=warm)
-
-    def risk_free_runs() -> Tuple[List, List]:
-        """The exactly-sorted runs of the merge, as ``(runs, pieces)``:
-        block SAs with the text-mode risk set (and blocks of unresolved
-        ties) re-ranked into sorted pieces that join the merge as runs of
-        their own.  No runs: every suffix was at risk, and the pieces
-        already are consecutive intervals of the true order."""
-        if plan.text_mode:
-            runs, risk = _split_boundary_risk(plan, local_sas, block_stats, store.k,
-                                              device=dev)
-            runs = [keep_run(r) for r in runs]  # re-spill the filtered runs
-            bad = [risk] if risk.shape[0] else []
-        else:
-            # reads mode: block runs are exact, unless a block hit the
-            # refinement hard cap; such blocks are re-ranked like a risk set
-            runs = [r for r, st in zip(local_sas, block_stats, strict=True)
-                    if st.get("unresolved", 0) == 0]
-            bad = [_to_device(r, dev) for r, st in zip(local_sas, block_stats, strict=True)
-                   if st.get("unresolved", 0) != 0]
-        pieces = []
-        if bad:
-            pieces = [keep_run(p) for p in
-                      _sorted_runs(store, torch.cat(bad), cap, samples, refine)
-                      if p.shape[0]]
-        if scratch is not None:
-            scratch.drain_spills()  # the merge reads these runs next
-        return runs, pieces
-
-    if sb.merge_algorithm == "rerank":
-        # every suffix re-ranked from scratch (block order only samples the
-        # splitters): the traffic baseline
-        every = torch.cat([_to_device(r, dev) for r in local_sas])
-        for p in _sorted_runs(store, every, cap, samples, refine):
-            sink.append(p)
-    else:
-        runs, pieces = risk_free_runs()
-        if not runs:
-            for p in pieces:
-                sink.append(p)
-        elif sb.merge_algorithm == "merge_path":
-            peak_candidates = _merge_path_runs(
-                store, runs + pieces, sink, cap, sb.merge_tile, cfg.use_pallas,
-                refiner=refiner, frontier=frontier, executor=pipe,
+        cur = WindowCursor(store)
+        refiner: Optional[DeviceRefiner] = None
+        if sb.merge_backend == "device":
+            refiner = DeviceRefiner(
+                original_corpus if isinstance(original_corpus, np.ndarray)
+                else store.stage_items(0, backend.n),
+                cfg, lengths=lengths, device=dev, group=ranks.group,
             )
+            refine = refiner.refine
         else:
-            # the splitter pools are lists of sorted pick runs: merged through
-            # the cursor, their windows are fetched once and stay cached for
-            # the partition probes and the bucket merges
-            def rank_pool(pool_runs: List[np.ndarray]) -> np.ndarray:
-                return _kway_merge(cur, pool_runs, release=False)
+            # kway: the merge cursor is offered every re-rank fetch, so the
+            # k-way phase serves those windows from its cache.  Not streaming:
+            # the offers would keep a window a re-ranked suffix cached, beyond
+            # the frontier's bound
+            warm = cur if (sb.merge_algorithm == "kway" and not streaming) else None
 
-            # the heap walks host arrays: the runs come there here
-            for p in _merge_runs(cur, [_to_host(r) for r in runs + pieces], cap,
-                                 samples, rank_pool, frontier=frontier):
+            def refine(g: torch.Tensor) -> torch.Tensor:
+                return _refine_sort(store, g, cursor=warm)
+
+        def risk_free_runs() -> Tuple[List, List]:
+            """The exactly-sorted runs of the merge, as ``(runs, pieces)``:
+            block SAs with the text-mode risk set (and blocks of unresolved
+            ties) re-ranked into sorted pieces that join the merge as runs of
+            their own.  No runs: every suffix was at risk, and the pieces
+            already are consecutive intervals of the true order."""
+            if plan.text_mode:
+                runs, risk = _split_boundary_risk(plan, local_sas, block_stats, store.k,
+                                                  device=dev)
+                runs = [keep_run(r) for r in runs]  # re-spill the filtered runs
+                bad = [risk] if risk.shape[0] else []
+            else:
+                # reads mode: block runs are exact, unless a block hit the
+                # refinement hard cap; such blocks are re-ranked like a risk set
+                runs = [r for r, st in zip(local_sas, block_stats, strict=True)
+                        if st.get("unresolved", 0) == 0]
+                bad = [_to_device(r, dev) for r, st in zip(local_sas, block_stats, strict=True)
+                       if st.get("unresolved", 0) != 0]
+            pieces = []
+            if bad:
+                pieces = [keep_run(p) for p in
+                          _sorted_runs(store, torch.cat(bad), cap, samples, refine)
+                          if p.shape[0]]
+            if scratch is not None:
+                scratch.drain_spills()  # the merge reads these runs next
+            return runs, pieces
+
+        if sb.merge_algorithm == "rerank":
+            # every suffix re-ranked from scratch (block order only samples the
+            # splitters): the traffic baseline
+            every = torch.cat([_to_device(r, dev) for r in local_sas])
+            for p in _sorted_runs(store, every, cap, samples, refine):
                 sink.append(p)
-    sa = sink.result()
-    t_merge = time.perf_counter() - t_merge0
+        else:
+            runs, pieces = risk_free_runs()
+            if not runs:
+                for p in pieces:
+                    sink.append(p)
+            elif sb.merge_algorithm == "merge_path":
+                peak_candidates = _merge_path_runs(
+                    store, runs + pieces, sink, cap, sb.merge_tile, cfg.use_pallas,
+                    refiner=refiner, frontier=frontier, executor=pipe,
+                )
+            else:
+                # the splitter pools are lists of sorted pick runs: merged through
+                # the cursor, their windows are fetched once and stay cached for
+                # the partition probes and the bucket merges
+                def rank_pool(pool_runs: List[np.ndarray]) -> np.ndarray:
+                    return _kway_merge(cur, pool_runs, release=False)
+
+                # the heap walks host arrays: the runs come there here
+                for p in _merge_runs(cur, [_to_host(r) for r in runs + pieces], cap,
+                                     samples, rank_pool, frontier=frontier):
+                    sink.append(p)
+        sa = sink.result()
+    t_merge = merge.host_s
     if sanitize_enabled(sb):
         check_footprint(store, backend)
 
