@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --run-groups  # phase 3's run_groups checks and timing only
     python3 chip_smoke.py --stream-reads 5000 12000  # phase 9's streaming build only
     python3 chip_smoke.py --merge-ab PARENT_TREE 10  # phase 8's reads cell, A/B
     python3 chip_smoke.py --gather-ab PARENT_TREE 4  # window_gather, A/B
@@ -39,7 +40,9 @@ each of which fails loudly:
    base is not 16-byte aligned) and at the full-size shapes of phases 5 and
    7 (for the last two: 2^26 Map records of the text cell, D = 512, tiles
    of 1024, and for ``bitonic_sort_tiles`` also 2^16 and 2^20, with its
-   CUDA launches a call), and time both, and for the last two the nearest
+   CUDA launches a call), and ``run_groups`` at ``cases``' edges and at a
+   refinement round's 201 M rows (beside ``torch.cummax`` alone), and time
+   both, and for the last two the nearest
    composition of PyTorch calls; ``bucket_hist`` also at its phase-13 shape
    (a rank's ``RANKS_KEYS`` records, D = 4: its JSON entry, with D = 512
    under ``d512``); ``window_gather`` also at 2^14 requests (about a
@@ -57,7 +60,8 @@ each of which fails loudly:
    sampled adjacent pairs must be in suffix order.  Each build's launch
    counts are set to 0 just before it and read just after: ``prefix_pack``
    must launch in the text build, ``window_gather`` in the reads build, and
-   no kernel on the plain path;
+   no kernel on the plain path but ``run_groups`` (the run-start ids, which
+   no switch turns off);
 6. one profiled kernel-path build of each (``torch.profiler``): device busy
    share and device time by kind of kernel;
 7. the query path at full size: ``SuffixArrayIndex.build`` with its LCP
@@ -151,8 +155,8 @@ each of which fails loudly:
    text with planted duplicate spans: the same spans, mask and stats, and
    one copy of every intact planted span masked.  The TeraSort and text
    doubling builds are profiled once more, as phase 6 profiles.  Nothing dropped or
-   unresolved, and no kernel launched: neither mode of ``src/repro`` calls
-   one;
+   unresolved, and no kernel launched but ``run_groups`` (doubling's run
+   starts): neither mode of ``src/repro`` calls a Pallas kernel;
 13. world size 4 on the one card: ``RANKS_D`` processes, one gloo rank each
    (NCCL takes one rank a card), over ``synth_dna_reads(RANKS_READS, 200,
    seed=0)`` and ``synth_token_corpus(2**RANKS_TEXT_LOG2, 4, seed=0)``: the
@@ -360,7 +364,8 @@ RANKS_READS_BUILD = f"{RANKS_D} ranks reads {RANKS_READS // 1000}K x 200 scheme 
 # the full-size run whose main path each kernel lies on
 KERNEL_BUILD = {"prefix_pack": TEXT_BUILD, "window_gather": READS_BUILD,
                 "bucket_hist": RANKS_READS_BUILD, "pattern_search": READS_QUERY,
-                "pattern_cmp_level": "reads reopened chunked", "merge_path": READS_OOC}
+                "pattern_cmp_level": "reads reopened chunked", "merge_path": READS_OOC,
+                "run_groups": READS_BUILD}
 
 
 def log(msg: str) -> None:
@@ -400,6 +405,85 @@ def byte_or_op_bound(nbytes: float, int32_ops: float):
     rate and int32 operations over the int32 rate."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, int32_ops / PEAK_INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def switched(launched):
+    """The launches of the kernels ``SAConfig.use_pallas`` switches: every
+    kernel but ``run_groups``, which a build on a card runs on either path
+    (its run starts have no switch) and in the doubling mode."""
+    return {k: v for k, v in launched.items() if k != "run_groups"}
+
+
+def run_groups_timing(dev, n=FULL_READS * (FULL_READ_LEN + 1)):
+    """``run_groups`` at a refinement round's shape: n rows (a reads build's
+    201 M records), three key columns (the group id and the two window
+    words), runs of mean length 20 and the last 1 % padding rows; and the
+    flags mode over the same rows.  Kernel against its plain version
+    (``ref.run_groups_ref``: the flags, then ``torch.cummax``), the library
+    call alone (``torch.cummax`` of the candidate ids) and the byte bound
+    ((4w + 1 + 4) B a row)."""
+    import torch
+
+    from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import run_groups as rg_mod
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    r = torch.cumsum(torch.rand(n, device=dev, generator=gen) < 0.05, 0)
+    keys = cases.run_keys(r, 3, lambda a: a.to(torch.int32))
+    del r
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[n - n // 100:] = False
+    got, want = rg_mod.run_groups(keys, valid), ref.run_groups_ref(keys, valid)
+    check_equal(f"run_groups n={n} w=3", got, want)
+    eq = torch.zeros(n, dtype=torch.bool, device=dev)
+    eq[1:] = ((keys[0][1:] == keys[0][:-1]) & (keys[1][1:] == keys[1][:-1])
+              & (keys[2][1:] == keys[2][:-1]) & valid[1:])
+    check_equal(f"run_starts n={n}", rg_mod.run_starts(eq), want)
+    cand = torch.where(eq, -1, torch.arange(n, dtype=torch.int32, device=dev))
+    bound_ms, bound_by = byte_or_op_bound((4 * 3 + 1 + 4) * n, 0)
+    flags_bound_ms, _ = byte_or_op_bound((1 + 4) * n, 0)
+    out = dict(
+        max_abs_err=max_abs_err(got, want),
+        ms=time_ms(lambda: rg_mod.run_groups(keys, valid), 20),
+        plain_ms=time_ms(lambda: ref.run_groups_ref(keys, valid), 3),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.cummax(cand, 0), 3),
+        library="torch.cummax of the candidate ids alone",
+        flags_ms=time_ms(lambda: rg_mod.run_starts(eq), 20),
+        flags_bound_ms=flags_bound_ms,
+        device_ms=device_ms(lambda: rg_mod.run_groups(keys, valid), "run_groups", reps=20),
+        shape=f"n={n}, 3 key columns, runs of mean length 20, 1 % padding rows",
+    )
+    log(f"phase 3: run_groups ({out['shape']}): kernel {out['ms']:.4f} ms (device "
+        f"{out['device_ms']:.4f} ms a launch), flags mode {out['flags_ms']:.4f} ms "
+        f"(bound {flags_bound_ms:.4f} ms), plain {out['plain_ms']:.4f} ms, "
+        f"torch.cummax alone {out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return out
+
+
+def check_run_groups_cases(dev):
+    """``run_groups`` against its plain version at ``cases``' edges, in
+    every mode, and at 2^27 rows."""
+    import torch
+
+    from repro_torch.kernels import cases, ref
+    from repro_torch.kernels import run_groups as rg_mod
+
+    for name in cases.RUN_GROUPS_CASES:
+        for mode in cases.RUN_GROUPS_MODES:
+            keys, flags = cases.run_groups_tensors(name, mode, dev)
+            if mode.startswith("eq"):
+                got, want = rg_mod.run_starts(flags), ref.run_starts_ref(flags)
+            else:
+                got, want = rg_mod.run_groups(keys, flags), ref.run_groups_ref(keys, flags)
+            check_equal(f"run_groups {name} {mode}", got, want)
+    n = cases.RUN_GROUPS_LARGE
+    r = torch.zeros(n, dtype=torch.int64, device=dev)  # one run over every tile
+    keys = cases.run_keys(r, 3, lambda a: a.to(torch.int32))
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    check_equal(f"run_groups n={n} one run", rg_mod.run_groups(keys, valid),
+                ref.run_groups_ref(keys, valid))
 
 
 def phase_kernels(dev, reads_corpus, text_tokens):
@@ -503,7 +587,9 @@ def phase_kernels(dev, reads_corpus, text_tokens):
                            f"{bs_mod.bitonic_sort_tiles.cuda_launches}, 16-byte "
                            f"path {bs_mod._vector_path(*args)})",
                            got, ref.bitonic_sort_tiles_ref(*args, tile))
+    check_run_groups_cases(dev)
     log("phase 3: kernels == plain versions at the tests/test_kernels.py shapes, "
+        "run_groups' edge lengths, modes and views, "
         "prefix_pack's edge lengths, views and wide tokens, pattern_search on "
         "the CPU tests' corpora, "
         "window_gather's edge cases (misaligned views included), "
@@ -586,6 +672,7 @@ def phase_kernels(dev, reads_corpus, text_tokens):
         f"a launch (profiler, 200 launches); CUDA events "
         f"{out['pattern_cmp']['ms']:.4f} ms a call, host launch path included")
     out["pattern_cmp_level"] = level_timing(dev, k)
+    out["run_groups"] = run_groups_timing(dev)
     # merge_path_ranks at the merge's full tile, C = 4 x 4096: four words (the
     # depth-0 key words and the index words) and the widest row a reads
     # merge can build (every window level, the tie column, the index words);
@@ -1229,7 +1316,7 @@ def phase_full_builds(dev, reads_corpus, text_tokens):
             if use_pallas:
                 counts[name] = launched
                 log(f"phase 5: {name} [kernels]: launches {launched}")
-            elif any(launched.values()):
+            elif any(switched(launched).values()):
                 raise AssertionError(f"{name}: plain path launched {launched}")
     for kernel, name in KERNEL_BUILD.items():
         if name in counts and counts[name][kernel] <= 0:
@@ -1744,7 +1831,7 @@ def phase_out_of_core(dev, reads_corpus, text_tokens, incore_sa, incore_lcp):
                 raise AssertionError(f"{name} [{label}]: peak_records over capacity")
             if use_pallas and launched["merge_path"] <= 0:
                 raise AssertionError(f"{name} [{label}]: merge_path not launched")
-            if not use_pallas and any(launched.values()):
+            if not use_pallas and any(switched(launched).values()):
                 raise AssertionError(f"{name} [{label}]: plain path launched {launched}")
             kept[label] = (dataclasses.asdict(res.footprint), stats_without_walls(st))
             report[(name, label)] = dict(wall_s=dt, suffixes_per_s=n / dt,
@@ -2078,7 +2165,7 @@ def merge_build(name, label, corpus, alg, use_pallas, merge_backend="host", **sb
         raise AssertionError(f"phase 10: {name} {alg} [{label}]: {st}")
     if not st["peak_records"] <= st["capacity_records"]:
         raise AssertionError(f"phase 10: {name} {alg} [{label}]: peak_records over capacity")
-    if not use_pallas and any(launched.values()):
+    if not use_pallas and any(switched(launched).values()):
         raise AssertionError(f"phase 10: {name} {alg} [{label}]: plain path launched {launched}")
     return res, dt, launched
 
@@ -2511,7 +2598,7 @@ def mode_build(name, corpus, mode):
     log(f"phase 12: {name}: {dt:.3f} s wall, {n / dt:.0f} suffixes/s, peak "
         f"{peak / 2**30:.2f} GiB, launches {launched}")
     sa_build.report(res, dt, mode)
-    if any(launched.values()):
+    if any(switched(launched).values()):
         raise AssertionError(f"phase 12: {name}: a kernel launched: {launched}")
     if res.stats["dropped"] or res.stats.get("unresolved", 0):
         raise AssertionError(f"phase 12: {name}: {res.stats}")
@@ -2578,7 +2665,7 @@ def phase_build_modes(dev, reads_corpus, text_tokens, incore_sa, scheme_fp):
         _, keeps[mode], stats[mode] = dedup_corpus(toks, device=dev, mode=mode)
     dt = time.perf_counter() - t0
     counts[name] = launch_counts()
-    if any(counts[name].values()):
+    if any(switched(counts[name]).values()):
         raise AssertionError(f"phase 12: {name}: a kernel launched: {counts[name]}")
     if not (spans["scheme"] == spans["doubling"] and stats["scheme"] == stats["doubling"]
             and np.array_equal(keeps["scheme"], keeps["doubling"])):
@@ -2773,7 +2860,7 @@ def phase_ranks(dev, reads=RANKS_READS, text_log2=RANKS_TEXT_LOG2, d=RANKS_D):
         counts[full] = launched
         if kernels and not launched["bucket_hist"]:
             raise AssertionError(f"phase 13: {name}: bucket_hist not launched: {launched}")
-        if not kernels and any(launched.values()):
+        if not kernels and any(switched(launched).values()):
             raise AssertionError(f"phase 13: {name}: plain path launched {launched}")
         wall = max(x["wall"] for x in r)
         n = r[0]["n"]
@@ -4641,6 +4728,13 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if argv == ["--run-groups"]:
+        t0 = time.perf_counter()
+        check_run_groups_cases(dev)
+        log("phase 3: run_groups == its plain version at cases' edges and 2^27 rows")
+        log(json.dumps({"run_groups": run_groups_timing(dev)}))
+        log(f"phase 3 (run_groups): {time.perf_counter() - t0:.1f} s")
+        return 0
     if argv[:1] == ["--stream-reads"]:
         for reads in map(int, argv[1:]):
             phase_streaming(dev, None, reads)
@@ -4808,6 +4902,8 @@ def main(argv) -> int:
                         "src/repro/kernels/bucket_hist.py:38"),
         "bitonic_sort": ("src/repro_torch/kernels/csrc/bitonic_sort.cu",
                          "src/repro/kernels/bitonic_sort.py:74"),
+        "run_groups": ("src/repro_torch/kernels/csrc/run_groups.cu",
+                       "none (lax.cummax in src/repro/core/distributed.py::run_starts)"),
     }
     # on no main path: its launches are the sum over every main-path run,
     # which must be 0
@@ -4839,7 +4935,8 @@ def main(argv) -> int:
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": kern[k].get("library_ms"),
          **({"library": kern[k]["library"]} if "library" in kern[k] else {}),
-         **{x: kern[k][x] for x in ("cuda_launches", "tiles", "d512") if x in kern[k]},
+         **{x: kern[k][x] for x in ("cuda_launches", "tiles", "d512", "flags_ms",
+                                     "device_ms") if x in kern[k]},
          **({"note": no_path[k]} if k in no_path else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -309,11 +309,12 @@ def sample_splitters(
 
 def run_starts(eq_prev: torch.Tensor) -> torch.Tensor:
     """Given eq_prev[i] = (row i equals row i-1), return start index of each
-    run (``group id``): g[i] = i at run starts, propagated by cumulative max."""
-    n = eq_prev.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=eq_prev.device)
-    cand = torch.where(eq_prev, -1, idx)
-    return torch.cummax(cand, dim=0).values
+    run (``group id``): g[i] = i at run starts, propagated by cumulative max.
+    A card launches the ``run_groups`` kernel; the CPU takes its plain
+    version."""
+    from repro_torch.kernels import ops as kops
+
+    return kops.run_starts(eq_prev)
 
 
 def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,6 @@ from repro_torch.core.distributed import (
     partition,
     pmax,
     psum,
-    run_starts,
     sample_splitters,
     world,
 )
@@ -91,14 +90,12 @@ def _suffix_exhausted(ih, il, depth, *, text_mode, text_len, uniform_len,
 
 
 def _run_groups(keys, validr):
-    """Group ids of runs of equal ``keys`` rows (padding rows stand alone)."""
+    """Group ids of runs of equal ``keys`` rows (padding rows stand alone):
+    one ``run_groups`` launch on a card, its plain version on the CPU."""
+    from repro_torch.kernels import ops as kops
+
     with span("sa.run_groups", validr.device):
-        eq = torch.zeros(validr.shape, dtype=torch.bool, device=validr.device)
-        same = validr[1:].clone()
-        for key in keys:
-            same &= key[1:] == key[:-1]
-        eq[1:] = same
-        return run_starts(eq)
+        return kops.run_groups(keys, validr)
 
 
 def _refine_tie_groups(g, ih, il, exhausted, *, store_local, spec, cfg,

@@ -6,7 +6,9 @@ per Pallas kernel of the JAX package).  Each entry names its dispatch op in
 ``repro_torch.kernels.ref``.  ``pattern_search``, the query engine's whole
 search on the card, and ``pattern_cmp_level``, one window level of its round
 loop, have no entry: they have no Pallas counterpart, and live beside
-``pattern_cmp``, whose compare they run.
+``pattern_cmp``, whose compare they run.  Nor has ``run_groups``, the
+run-start group ids of sorted rows, which the JAX package leaves to
+``lax.cummax``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ def _wrappers() -> Dict[str, object]:
         merge_path,
         pattern_cmp,
         prefix_pack,
+        run_groups,
         window_gather,
     )
 
@@ -50,6 +53,7 @@ def _wrappers() -> Dict[str, object]:
         "pattern_search": pattern_cmp.pattern_search,
         "merge_path": merge_path.merge_path_ranks,
         "bitonic_sort": bitonic_sort.bitonic_sort_tiles,
+        "run_groups": run_groups.run_groups,
     }
 
 

@@ -19,7 +19,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("prefix_pack", "window_gather", "bucket_hist", "pattern_cmp",
-           "merge_path", "bitonic_sort")
+           "merge_path", "bitonic_sort", "run_groups")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -625,3 +625,94 @@ def search_args(engine, pats, upper: bool):
     return (st.backend.padded, st.stride_bits, st.k, engine.sa, engine._llcp,
             engine._rlcp, rows, plen, engine._bounds[shard] - 1,
             engine._bounds[shard + 1], upper, engine._max_rounds)
+
+
+# run_groups: the kernel scans tiles of RUN_TILE rows, 16 a thread (the
+# wrapper's TILE_ROWS).  Each case runs in every mode: 0 to 3 key columns
+# with a valid mask ("w0"-"w3", ``run_groups``), or given flags
+# (``run_starts``): "eq" with eq[0] false, as its callers give it, and
+# "eq-lead" with eq[0] true, so that the rows before the first start read -1
+RUN_TILE = 4096
+RUN_GROUPS_LENGTHS = {
+    "n0": 0, "n1": 1, "n2": 2,
+    "tile-1": RUN_TILE - 1, "tile": RUN_TILE, "tile+1": RUN_TILE + 1,
+    "ragged": 3 * RUN_TILE + 2055,  # no multiple of a thread's 16 rows
+    "one-run": 300 * RUN_TILE + 5,  # one run over every tile
+    "distinct": 5 * RUN_TILE + 3,  # every row a run of its own
+    "pad-end": 4 * RUN_TILE + 9,  # invalid rows at the end
+    "pad-middle": 4 * RUN_TILE + 9,  # and in the middle
+    "view1": 2 * RUN_TILE + 5,  # arrays 1 element into their storage
+    "view3": 2 * RUN_TILE + 5,  # and 3
+}
+RUN_GROUPS_CASES = tuple(RUN_GROUPS_LENGTHS)
+RUN_GROUPS_MODES = ("w0", "w1", "w2", "w3", "eq", "eq-lead")
+RUN_GROUPS_LARGE = 1 << 27  # rows of the card's large case, in mode "w3"
+
+
+def run_keys(r, w: int, to_int32):
+    """w int32 key columns of rows with run ids ``r`` (int64, numpy or
+    torch): column c hashes ``r >> (w - 1 - c)`` (an odd multiplier mod
+    2^32 is a bijection), so the rows of a run are equal in every column,
+    and neighbouring runs may differ in the last column alone."""
+    return [to_int32(((r >> (w - 1 - c)) * 2654435761 + 7 * c) & 0xFFFFFFFF)
+            for c in range(w)]
+
+
+def run_groups_arrays(name: str, mode: str):
+    """(keys, flags, offset) of a ``RUN_GROUPS_CASES`` case in a mode:
+    numpy int32 key columns (none in the eq modes), the bool valid mask or eq
+    flags, and the offset into their storage at which the tests view them."""
+    n = RUN_GROUPS_LENGTHS[name]
+    rng = np.random.default_rng(RUN_GROUPS_CASES.index(name))
+    if name == "one-run":
+        r = np.zeros(n, np.int64)
+    elif name == "distinct":
+        r = np.arange(n, dtype=np.int64)
+    else:  # runs of mean length 4, and a few of several tiles
+        start = rng.random(n) < 0.25
+        for a in rng.integers(0, max(n, 1), size=max(n // (2 * RUN_TILE), 1)):
+            start[a + 1 : a + int(rng.integers(RUN_TILE, 3 * RUN_TILE))] = False
+        r = np.cumsum(start).astype(np.int64)
+    valid = rng.random(n) >= 0.02 if name != "one-run" else np.ones(n, bool)
+    if name.startswith("pad"):  # padding rows: equal keys, each its own run
+        pad = slice(n - 1000, n) if name == "pad-end" else slice(n // 3, n // 3 + 1000)
+        r[pad], valid[pad] = r[pad.start], False
+        if name == "pad-end":
+            r[pad] = r.max() + 1
+    offset = int(name[4:]) if name.startswith("view") else 0
+    if mode.startswith("eq"):
+        eq = np.zeros(n, bool)
+        eq[1:] = (r[1:] == r[:-1]) & valid[1:]
+        if n and mode == "eq-lead":
+            eq[0] = True
+        return [], eq, offset
+    return run_keys(r, int(mode[1:]), lambda a: a.astype(np.int32)), valid, offset
+
+
+def run_groups_tensors(name: str, mode: str, device="cpu"):
+    """``run_groups_arrays`` as tensors on ``device``, each a view
+    ``offset`` elements into its storage."""
+    import torch
+
+    keys, flags, off = run_groups_arrays(name, mode)
+
+    def view(a):
+        t = torch.from_numpy(a).to(device)
+        return torch.cat([t.new_zeros(off), t])[off:] if off else t
+
+    return [view(k) for k in keys], view(flags)
+
+
+def run_groups_eq(keys, flags, mode: str) -> np.ndarray:
+    """The eq flags a case's ids are the run starts of, by numpy: the flags
+    themselves in the eq modes, else ``eq[0]`` false and ``eq[i] = valid[i]
+    &`` every column equal to row i - 1's."""
+    flags = np.asarray(flags)
+    if mode.startswith("eq"):
+        return flags
+    eq = np.zeros(flags.shape[0], bool)
+    eq[1:] = flags[1:]
+    for k in keys:
+        k = np.asarray(k)
+        eq[1:] &= k[1:] == k[:-1]
+    return eq

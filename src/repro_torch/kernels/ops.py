@@ -83,3 +83,24 @@ def pattern_search(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo, hi,
 
     return _pattern_search(padded, stride_bits, k, sa, llcp, rlcp, pat, plen, lo,
                            hi, upper, rounds, block=block)
+
+
+def run_groups(keys, valid):
+    """Group ids of runs of equal ``keys`` rows, padding rows (``valid``
+    false) standing alone (no Pallas counterpart: the JAX package's pipeline
+    computes the flags inline, then ``run_starts``' ``lax.cummax``)."""
+    if valid.device.type == "cpu":
+        return ref.run_groups_ref(keys, valid)
+    from repro_torch.kernels.run_groups import run_groups as _run_groups
+
+    return _run_groups(keys, valid)
+
+
+def run_starts(eq_prev):
+    """The start index of each row's run from the flags ``eq_prev`` (no
+    Pallas counterpart: the JAX package's ``run_starts`` is a ``lax.cummax``)."""
+    if eq_prev.device.type == "cpu":
+        return ref.run_starts_ref(eq_prev)
+    from repro_torch.kernels.run_groups import run_starts as _run_starts
+
+    return _run_starts(eq_prev)

@@ -141,3 +141,21 @@ def merge_path_ranks_ref(keys: torch.Tensor) -> torch.Tensor:
         out[lo : lo + RANK_CHUNK] = lt.sum(dim=1).to(torch.int32)
     return out
 
+
+def run_starts_ref(eq_prev: torch.Tensor) -> torch.Tensor:
+    """Given eq_prev[i] = (row i equals row i-1), return start index of each
+    run (``group id``): g[i] = i at run starts, propagated by cumulative max."""
+    n = eq_prev.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=eq_prev.device)
+    cand = torch.where(eq_prev, -1, idx)
+    return torch.cummax(cand, dim=0).values
+
+
+def run_groups_ref(keys, valid: torch.Tensor) -> torch.Tensor:
+    """Group ids of runs of equal ``keys`` rows (padding rows stand alone)."""
+    eq = torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
+    same = valid[1:].clone()
+    for key in keys:
+        same &= key[1:] == key[:-1]
+    eq[1:] = same
+    return run_starts_ref(eq)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from repro.config import SAConfig as RefConfig
 from repro.kernels import KERNEL_REGISTRY as REF_REGISTRY
 from repro.kernels import ops as ref_ops
+from repro.core import distributed as jdist
 from repro.core.search import masked_cmp_np
 from repro.kernels import ref as jref
 from repro_torch.config import SAConfig
@@ -23,6 +24,7 @@ from repro_torch.kernels import KERNEL_REGISTRY, launch_counts, ops, ref
 from repro_torch.kernels import bitonic_sort as bs_mod
 from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
+from repro_torch.kernels import run_groups as rg_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels import cases
 from repro_torch.kernels.cases import (
@@ -454,3 +456,60 @@ def test_merge_path_wrapper_refuses_cpu_tensors():
         mp_mod.merge_path_ranks(keys)
     assert mp_mod.merge_path_ranks.launches == before
 
+
+
+@pytest.mark.parametrize("mode", cases.RUN_GROUPS_MODES)
+@pytest.mark.parametrize("name", cases.RUN_GROUPS_CASES)
+def test_run_groups_ops_match_repro(name, mode):
+    """``ops.run_groups`` (key columns and a valid mask) and
+    ``ops.run_starts`` (given flags) on CPU tensors launch nothing and equal
+    the JAX package's ``run_starts`` over the same flags, at the CUDA
+    kernel's edges: empty and one-row inputs, lengths around a tile, one run
+    over every tile, every row distinct, padding rows at the end and in the
+    middle, views one and three elements into their storage."""
+    keys, flags = cases.run_groups_tensors(name, mode)
+    before = launch_counts()
+    got = ops.run_starts(flags) if mode.startswith("eq") else ops.run_groups(keys, flags)
+    assert launch_counts() == before  # CPU tensors take the plain version
+    assert got.dtype == torch.int32
+    eq = cases.run_groups_eq([k.numpy() for k in keys], flags.numpy(), mode)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jdist.run_starts(jnp.asarray(eq))))
+
+
+@pytest.mark.parametrize("what", ["cpu", "int64", "strided", "int-flags", "four-columns"])
+def test_run_groups_wrapper_refuses(what):
+    """The kernel's wrapper takes contiguous 1-D int32 CUDA columns and a
+    bool CUDA mask, at most three columns; on anything else it raises and
+    launches nothing (on the CPU every tensor is refused, with what else is
+    wrong named)."""
+    col = torch.arange(8, dtype=torch.int32)
+    valid = torch.ones(8, dtype=torch.bool)
+    keys, valid, match = {
+        "cpu": ([col], valid, "key column 0 must be .* CUDA tensor, got torch.int32"),
+        "int64": ([col.long()], valid, "got torch.int64"),
+        "strided": ([torch.arange(16, dtype=torch.int32)[::2]], valid, "not contiguous"),
+        "int-flags": ([], col, "valid must be .*torch.bool.*got torch.int32"),
+        "four-columns": ([col] * 4, valid, "at most 3 key columns"),
+    }[what]
+    before = launch_counts()
+    with pytest.raises(ValueError, match=match):
+        rg_mod.run_groups(keys, valid)
+    with pytest.raises(ValueError, match="eq_prev must be .* CUDA"):
+        rg_mod.run_starts(valid.bool())
+    assert launch_counts() == before
+
+
+def test_in_core_build_computes_run_groups_once_a_round(monkeypatch):
+    """An in-core build asks ``ops.run_groups`` once after the first sort
+    and once a refinement round: ``stats["iters"] + 1`` calls, as many
+    kernel launches as a card build makes."""
+    from repro_torch.core.pipeline import build_suffix_array
+    from repro_torch.data.corpus import synth_dna_reads
+
+    calls = []
+    real = ops.run_groups
+    monkeypatch.setattr(ops, "run_groups", lambda *a: calls.append(1) or real(*a))
+    reads = synth_dna_reads(40, 30, seed=3)
+    res = build_suffix_array(reads, cfg=SAConfig(vocab_size=4), device="cpu")
+    assert res.stats["iters"] >= 1
+    assert len(calls) == res.stats["iters"] + 1

@@ -17,19 +17,21 @@ from repro_torch.kernels import bucket_hist as bh_mod
 from repro_torch.kernels import merge_path as mp_mod
 from repro_torch.kernels import pattern_cmp as pc_mod
 from repro_torch.kernels import prefix_pack as pp_mod
+from repro_torch.kernels import run_groups as rg_mod
 from repro_torch.kernels import window_gather as wg_mod
 from repro_torch.kernels.cases import (
     CMP_EDGE_K, CMP_SHAPES, GATHER_CASES, GATHER_IDS, GATHER_LARGE,
     GATHER_SHAPES, HIST_BLOCK, HIST_EDGE, HIST_FAULT,
     HIST_SHAPES, LEVEL_CASES, LEVEL_K, MERGE_EDGE, MERGE_RUN_EDGE, MERGE_RUNS, MERGE_SHAPES,
-    PACK_BLOCK, PACK_CFGS, PACK_EDGE, PACK_IDS, PACK_LENGTHS, SEARCH_CFG,
+    PACK_BLOCK, PACK_CFGS, PACK_EDGE, PACK_IDS, PACK_LENGTHS, RUN_GROUPS_CASES,
+    RUN_GROUPS_LARGE, RUN_GROUPS_MODES, SEARCH_CFG,
     SEARCH_CORPORA, SORT_EDGE, SORT_FAULT, SORT_LARGE, SORT_SHAPES,
     cmp_edge_inputs, cmp_inputs,
     fault_arrays, gather_case, hist_edge_inputs, hist_inputs, level_args,
     level_case, level_windows, merge_edge_inputs,
     merge_inputs, merge_run_edge_inputs, merge_runs_inputs, pack_edge_tokens,
-    pack_tokens, search_args, search_corpus, search_patterns, sort_edge_inputs,
-    sort_inputs, sorted_rows)
+    pack_tokens, run_groups_tensors, run_keys, search_args, search_corpus,
+    search_patterns, sort_edge_inputs, sort_inputs, sorted_rows)
 
 
 @pytest.fixture
@@ -452,3 +454,88 @@ def test_bitonic_sort_kernel_refuses_other_tiles(cuda, tile):
     with pytest.raises(ValueError, match="power of two"):
         bs_mod.bitonic_sort_tiles(x, x, x, tile=tile)
     assert bs_mod.bitonic_sort_tiles.launches == before
+
+
+def _run_groups_on_card(keys, flags, eq_mode):
+    """The kernel against its plain version (``torch.cummax``) on the same
+    card tensors, bit for bit; one launch a call with rows (none without)."""
+    before = rg_mod.run_groups.launches
+    if eq_mode:
+        got, want = ops.run_starts(flags), ref.run_starts_ref(flags)
+    else:
+        got, want = ops.run_groups(keys, flags), ref.run_groups_ref(keys, flags)
+    torch.cuda.synchronize()
+    assert rg_mod.run_groups.launches == before + (flags.shape[0] > 0)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", RUN_GROUPS_MODES)
+@pytest.mark.parametrize("name", RUN_GROUPS_CASES)
+def test_run_groups_kernel_on_card(cuda, name, mode):
+    """Empty and one-row inputs, lengths around a tile and no multiple of a
+    thread's rows, one run over every tile, every row distinct, padding rows
+    at the end and in the middle, views one and three elements into their
+    storage (4-byte loads); 0 to 3 key columns, and given flags with eq[0]
+    false and true."""
+    keys, flags = run_groups_tensors(name, mode, cuda)
+    _run_groups_on_card(keys, flags, mode.startswith("eq"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runs", ["short", "one"])
+def test_run_groups_kernel_large_on_card(cuda, runs):
+    """2^27 rows and three key columns (32 768 tiles): short runs with 2 %
+    padding rows, and one run over every tile."""
+    n = RUN_GROUPS_LARGE
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    if runs == "one":
+        r = torch.zeros(n, dtype=torch.int64, device=cuda)
+    else:
+        r = torch.cumsum(torch.rand(n, device=cuda, generator=gen) < 0.25, 0)
+    valid = (torch.rand(n, device=cuda, generator=gen) >= 0.02) | (runs == "one")
+    keys = run_keys(r, 3, lambda a: a.to(torch.int32))
+    del r
+    _run_groups_on_card(keys, valid, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["int64", "strided", "cpu-column", "length", "int-flags"])
+def test_run_groups_wrapper_refuses_on_card(cuda, what):
+    """Card tensors the kernel does not take: an int64 or strided column, a
+    column on the CPU, a column of another length, int flags."""
+    col = torch.arange(8, dtype=torch.int32, device=cuda)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    keys, valid = {
+        "int64": ([col.long()], valid),
+        "strided": ([torch.arange(16, dtype=torch.int32, device=cuda)[::2]], valid),
+        "cpu-column": ([col.cpu()], valid),
+        "length": ([col[:7]], valid),
+        "int-flags": ([col], col),
+    }[what]
+    before = rg_mod.run_groups.launches
+    with pytest.raises(ValueError):
+        rg_mod.run_groups(keys, valid)
+    assert rg_mod.run_groups.launches == before
+
+
+@pytest.mark.gpu
+def test_in_core_build_launches_run_groups_on_card(cuda):
+    """A small in-core reads build on the card launches the kernel once
+    after the first sort and once a refinement round, and gives the CPU
+    build's suffix array."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import build_suffix_array
+    from repro_torch.data.corpus import synth_dna_reads
+
+    reads = synth_dna_reads(200, 48, seed=1)
+    cfg = SAConfig(vocab_size=4, use_pallas=True)
+    before = rg_mod.run_groups.launches
+    res = build_suffix_array(reads, cfg=cfg, device=cuda)
+    launched = rg_mod.run_groups.launches - before
+    assert res.stats["iters"] >= 1
+    assert launched == res.stats["iters"] + 1
+    cpu = build_suffix_array(reads, cfg=cfg, device="cpu")
+    np.testing.assert_array_equal(res.suffix_array, cpu.suffix_array)
+    assert res.stats["iters"] == cpu.stats["iters"]
